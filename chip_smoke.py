@@ -8,19 +8,33 @@ before printing any result. Phases (one JSON line each):
    name the card (and its power limit, from nvidia-smi);
 2. kernels — each kernel against its plain PyTorch version on the card, at
    the main path's shapes (1 MiB shards), byte for byte, and the fused
-   kernel also against the NumPy field arithmetic;
+   kernel also against the NumPy field arithmetic; the panel route's
+   kernels at RS(200,56): the row-blocked pack and unpack (200 and 56
+   rows) and the panel matmul in one launch and in the reference's three
+   sub-launches, each against its plain version and the two against each
+   other;
 3. main_path — ``ReedSolomon(10, 4)`` on the card: split a 10 MiB object,
    encode, verify, lose shards {0, 5, 11}, reconstruct, join; a batch of
    five 1 MiB stripes through the coalescer; RS(4,2) on a 64 KiB message;
    one product forced through the pack -> sparse matmul -> unpack
-   pipeline. Launch counts are zeroed just before and read just after,
-   and every kernel must have launched;
+   pipeline. Then the panel route: ``ReedSolomon(200, 56)`` on a 200 MiB
+   object (encode, verify, lose 28 data and 28 parity shards, reconstruct,
+   reconstruct_data, join; the NumPy codec checks a 64 KiB column slice),
+   and ``ReedSolomon(229, 6)`` at 64 KiB shards. Launch counts are zeroed
+   just before each path and read just after, and every kernel of a path
+   must have launched (the accumulating panel launch is on no path: the
+   planner splits no K axis);
 4. times — CUDA-event medians with the L2 cache flushed between launches:
    each kernel and its plain version beside the least time the card could
-   take, and the codec's RS(10,4) encode rate (device-resident words and
-   end to end from host arrays) and reconstruct p50 at 3 erasures.
+   take, the codec's RS(10,4) encode rate (device-resident words and end
+   to end from host arrays) and reconstruct p50 at 3 erasures, and the
+   same three numbers for RS(200,56) at 1 MiB shards; the panel matmul
+   also on the (56,200) recovery matrix and on RS(229,6)'s parity.
 
 Then a ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
+``--panel-sweep`` adds, before those two lines, the panel matmul's time
+under other panel shapes and block sizes than the planner's, on the three
+panel matrices that ``panel_times`` times.
 """
 
 from __future__ import annotations
@@ -40,6 +54,17 @@ MIB = 1 << 20
 SHARD = MIB  # bytes per shard on the main path
 TW = SHARD // 4  # int32 words per shard
 REPS = 20
+# The plain panel matmul runs one PyTorch op per XOR (~150k at RS(200,56)),
+# seconds a call: it is timed on fewer reps, and host-array codec calls at
+# RS(200,56) likewise.
+PLAIN_PANEL_REPS = 2
+WIDE_REPS = 5
+# RS(200,56) parity and recovery are checked against the NumPy codec on
+# this many leading bytes of every shard: host arithmetic at full width
+# takes minutes, and the product is positionwise.
+HOST_SLICE = 64 << 10
+# 28 data and 28 parity shards lost (every other one of each).
+WIDE_LOST = tuple(range(0, 56, 2)) + tuple(range(200, 256, 2))
 # H100 SXM peaks: HBM bandwidth, and 32-bit logic ops (64 LOP3 lanes per
 # SM per clock x 132 SMs x 1.98 GHz — a quarter of the 67 TFLOP/s fp32
 # figure, which counts 128 FMA lanes at 2 flops each).
@@ -47,6 +72,11 @@ HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 132 * 64 * 1.98e9
 # 3 delta-swap rounds x 4 pairs x 6 ops per 8-word group transpose.
 TRANSPOSE_OPS = 72
+# A panel matmul's bound charges the XORs of the network cut into the
+# reference's 128 x 32 panels (pallas_gf2mm's panel plan), each factored
+# uncapped, whatever panels the planner picks: a plan that factors worse
+# does not loosen its own bound.
+REF_PANEL_KB, REF_PANEL_RB = 128, 32
 LIBRARY_NOTE = ("no single PyTorch call computes a GF(2^8) matrix product "
                 "or this bit transpose")
 
@@ -81,8 +111,9 @@ class Timer:
     def __init__(self, device):
         self.flush = torch.empty(256 * MIB, dtype=torch.uint8, device=device)
 
-    def median_ms(self, fn, reps: int = REPS) -> float:
-        fn()  # warm-up
+    def median_ms(self, fn, reps: int = REPS, warmup: bool = True) -> float:
+        if warmup:
+            fn()
         times = []
         for _ in range(reps):
             self.flush.zero_()
@@ -231,9 +262,87 @@ def phase_kernels(rng, device, results: dict) -> dict:
     return report
 
 
+def rs_200_56_parity():
+    from noise_ec_tpu_torch.gf import GF256
+    from noise_ec_tpu_torch.matrix import generator_matrix
+
+    gf = GF256()
+    return gf, generator_matrix(gf, 200, 256, "cauchy")[200:]
+
+
+def phase_panel_kernels(rng, device, results: dict) -> dict:
+    """K6 and K7 at RS(200,56), 1 MiB shards, against their plain versions;
+    K7 in one launch and in the reference's G = 3 sub-launches."""
+    from noise_ec_tpu_torch.matrix import host_matvec
+    from noise_ec_tpu_torch.ops.dispatch import DeviceCodec
+    from noise_ec_tpu_torch.ops.pack import (
+        blocked_lane_tl,
+        pack_words_lanes_blocked,
+        pack_words_lanes_blocked_plain,
+        unpack_words_lanes_blocked,
+        unpack_words_lanes_blocked_plain,
+    )
+    from noise_ec_tpu_torch.ops.panel import (
+        gf2_matmul_panel_chain,
+        gf2_matmul_panel_plain,
+        sublaunch_count,
+    )
+
+    gf, M = rs_200_56_parity()
+    codec = DeviceCodec(device=device)
+    check(codec.route_for(M) == "panel", "RS(200,56) routes panel")
+    t0 = time.monotonic()
+    kind, threads, prog, G = codec.plan_for(M)
+    plan_s = time.monotonic() - t0
+    W8 = TW // 64
+    words = rand_words(rng, (200, TW), device)
+    planes = pack_words_lanes_blocked(words)
+    err_p = max_abs_err(planes, pack_words_lanes_blocked_plain(words))
+    back = unpack_words_lanes_blocked(planes)
+    err_u = max_abs_err(back, unpack_words_lanes_blocked_plain(planes))
+    torch.cuda.synchronize()
+    check(err_p == 0 and err_u == 0, "blocked pack/unpack (200 rows) vs plain")
+    check(torch.equal(back, words), "blocked pack/unpack round trip")
+
+    planes = planes.reshape(1600, 8, W8)
+    G3 = sublaunch_count(codec._xor_cost_for(M), prog.PK)
+    one = gf2_matmul_panel_chain(prog, planes, threads, 1)
+    three = gf2_matmul_panel_chain(prog, planes, threads, G3)
+    plain = gf2_matmul_panel_plain(prog, planes)
+    err_1 = max_abs_err(one, plain)
+    err_3 = max_abs_err(three, plain)
+    parity = unpack_words_lanes_blocked(one.reshape(56, 8, 8, W8))
+    err_u56 = max_abs_err(
+        parity, unpack_words_lanes_blocked_plain(one.reshape(56, 8, 8, W8)))
+    host_words = HOST_SLICE // 4
+    host = host_matvec(gf, M, words[:, :host_words].cpu().numpy().view(np.uint8))
+    torch.cuda.synchronize()
+    check(err_1 == 0, "panel matmul G=1 vs plain")
+    check(err_3 == 0 and torch.equal(one, three),
+          f"panel matmul G={G3} vs plain and vs G=1")
+    check(err_u56 == 0, "blocked unpack (56 rows) vs plain")
+    check(np.array_equal(
+        parity[:, :host_words].cpu().numpy().view(np.uint8), host),
+        "panel parity vs host_matvec on a 64 KiB slice")
+    results["gf2mm_panel"]["max_abs_err"] = err_1
+    results["gf2mm_panel_acc"]["max_abs_err"] = err_3
+    results["pack_lanes_blocked"]["max_abs_err"] = err_p
+    results["unpack_lanes_blocked"]["max_abs_err"] = max(err_u, err_u56)
+    return {
+        "phase": "panel_kernels", "matrix": "RS(200,56) parity",
+        "plan": {"KB": prog.KB, "RB": prog.RB, "threads": threads,
+                 "temp_cap": prog.temp_cap, "G": G},
+        "plan_seconds": plan_s, "blocked_tl": blocked_lane_tl(TW),
+        "panels": [prog.PR, prog.PK], "slots": prog.n_slots,
+        "xors": prog.cost, "raw_xors": prog.raw,
+        "whole_network_raw_xors": codec._xor_cost_for(M),
+        "forced_sublaunches": G3, "equal": True,
+    }
+
+
 def phase_main_path(rng) -> dict:
     from noise_ec_tpu_torch.codec import ReedSolomon
-    from noise_ec_tpu_torch.matrix import host_matvec
+    from noise_ec_tpu_torch.matrix import host_matvec, reconstruction_matrix
     from noise_ec_tpu_torch.ops import launch_counts, reset_launch_counts
     from noise_ec_tpu_torch.ops.dispatch import DeviceCodec
 
@@ -242,8 +351,13 @@ def phase_main_path(rng) -> dict:
     batch = [rng.integers(0, 256, size=(10, SHARD), dtype=np.uint8)
              for _ in range(5)]
     forced = rng.integers(0, 256, size=(10, SHARD), dtype=np.uint8)
+    wide_obj = rng.integers(0, 256, size=200 * SHARD, dtype=np.uint8).tobytes()
+    obj229 = rng.integers(0, 256, size=229 * (64 << 10) - 5,
+                          dtype=np.uint8).tobytes()
     rs = ReedSolomon(10, 4)  # device="cuda" is the default
     rs42 = ReedSolomon(4, 2)
+    rs200 = ReedSolomon(200, 56)
+    rs229 = ReedSolomon(229, 6)
     codec = DeviceCodec()
     out = {}
 
@@ -274,6 +388,40 @@ def phase_main_path(rng) -> dict:
     piped, out["pipeline"] = run_path(
         lambda: codec.matmul_stripes(rs.G[10:], forced, tier="pipeline"))
 
+    # The panel route. Planning a new matrix is host work: the recovery
+    # matrices are planned (and timed) before their path runs.
+    wide_lost = set(WIDE_LOST)
+    present = [i for i in range(256) if i not in wide_lost][:200]
+    plan_s = {}
+    for name, rows in (("recovery_56", list(WIDE_LOST)),
+                       ("recovery_28", list(WIDE_LOST[:28]))):
+        R = reconstruction_matrix(rs200.gf, rs200.G, present, rows)
+        check(rs200._dev.route_for(R) == "panel", f"{name} routes panel")
+        t0 = time.monotonic()
+        rs200._dev.plan_for(R)
+        plan_s[name] = time.monotonic() - t0
+
+    def rs_200_56():
+        shards = rs200.split(wide_obj)
+        enc = rs200.encode(shards)
+        verified = rs200.verify(enc)
+        lost = [None if i in wide_lost else s for i, s in enumerate(enc)]
+        rec = rs200.reconstruct(lost)
+        data = rs200.reconstruct_data(lost)
+        return shards, enc, verified, lost, rec, data, rs200.join(
+            rec, len(wide_obj))
+
+    def rs_229_6():
+        enc = rs229.encode(rs229.split(obj229))
+        lost = [None if i in (0, 117, 231) else s for i, s in enumerate(enc)]
+        rec = rs229.reconstruct(lost)
+        return enc, rs229.verify(enc), lost, rec, rs229.join(rec, len(obj229))
+
+    (w_shards, w_enc, w_verified, w_lost, w_rec, w_data, w_joined), \
+        out["rs_200_56"] = run_path(rs_200_56)
+    (enc229, verified229, lost229, rec229, joined229), out["rs_229_6"] = \
+        run_path(rs_229_6)
+
     ref = ReedSolomon(10, 4, backend="numpy")
     check(all(np.array_equal(a, b) for a, b in zip(enc, ref.encode(shards))),
           "RS(10,4) encode vs numpy backend")
@@ -294,11 +442,49 @@ def phase_main_path(rng) -> dict:
         check(out[path]["fused_encode"] > 0, f"fused kernel launched on {path}")
     for name in ("pack_lanes", "gf2mm_sparse", "unpack_lanes"):
         check(out["pipeline"][name] > 0, f"{name} launched on the pipeline")
+
+    ref200 = ReedSolomon(200, 56, backend="numpy")
+    cut = [s[:HOST_SLICE] for s in w_shards]
+    want = ref200.encode(cut)
+    check(all(np.array_equal(a[:HOST_SLICE], b)
+              for a, b in zip(w_enc, want)),
+          "RS(200,56) encode vs numpy backend (64 KiB slice)")
+    check(w_verified, "RS(200,56) verify")
+    want_rec = ref200.reconstruct(
+        [None if s is None else s[:HOST_SLICE] for s in w_lost])
+    check(all(np.array_equal(a[:HOST_SLICE], b)
+              for a, b in zip(w_rec, want_rec)),
+          "RS(200,56) reconstruct vs numpy backend (64 KiB slice)")
+    check(all(np.array_equal(a, b) for a, b in zip(w_rec, w_enc)),
+          "RS(200,56) reconstruct 28 data + 28 parity")
+    check(all(np.array_equal(a, b) for a, b in zip(w_data[:200], w_enc)),
+          "RS(200,56) reconstruct_data")
+    check(w_joined == wide_obj, "RS(200,56) join")
+    ref229 = ReedSolomon(229, 6, backend="numpy")
+    check(all(np.array_equal(a, b) for a, b in
+              zip(enc229, ref229.encode(rs229.split(obj229)))),
+          "RS(229,6) encode vs numpy backend")
+    check(verified229, "RS(229,6) verify")
+    check(all(np.array_equal(a, b) for a, b in
+              zip(rec229, ref229.reconstruct(lost229))),
+          "RS(229,6) reconstruct vs numpy backend")
+    check(joined229 == obj229, "RS(229,6) round trip")
+    for path in ("rs_200_56", "rs_229_6"):
+        for name in ("pack_lanes_blocked", "gf2mm_panel",
+                     "unpack_lanes_blocked"):
+            check(out[path][name] > 0, f"{name} launched on {path}")
+    check(out["rs_200_56"]["fused_encode"] == 0,
+          "RS(200,56) runs no fused-kernel launch")
     launches = {name: sum(c[name] for c in out.values())
                 for name in out["pipeline"]}
     return {"phase": "main_path", "launches": launches, "by_path": out,
             "rs_10_4_object_bytes": len(obj), "erasures": [0, 5, 11],
-            "batch": len(batch), "rs_4_2_message_bytes": len(small)}
+            "batch": len(batch), "rs_4_2_message_bytes": len(small),
+            "rs_200_56_object_bytes": len(wide_obj),
+            "rs_200_56_erasures": list(WIDE_LOST),
+            "rs_200_56_recovery_plan_seconds": plan_s,
+            "rs_229_6_object_bytes": len(obj229),
+            "rs_229_6_erasures": [0, 117, 231]}
 
 
 def phase_times(rng, device, results: dict) -> dict:
@@ -326,9 +512,9 @@ def phase_times(rng, device, results: dict) -> dict:
     words = rand_words(rng, (10, TW), device)
     W8 = TW // 64
     groups = TW // 8
-    kind, f_threads, f_prog = codec.plan_for(M)
+    kind, f_threads, f_prog, _ = codec.plan_for(M)
     check(kind == "fused", "RS(10,4) plans onto the fused kernel")
-    _, p_threads, p_prog = codec.plan_for(M, "pipeline")
+    _, p_threads, p_prog, _ = codec.plan_for(M, "pipeline")
     planes = pack_words_lanes(words, 512)
     planes80 = planes.reshape(80, 8, W8)
     parity_planes = gf2_matmul_sparse(p_prog, planes80, p_threads)
@@ -397,9 +583,245 @@ def phase_times(rng, device, results: dict) -> dict:
     }
 
 
+def panel_xors(bits_rows: tuple, c0: int, c1: int) -> int:
+    """XORs a bound charges the product of ``bits_rows`` over input planes
+    [c0, c1): the reference panelling's factored XORs (REF_PANEL_KB), plus
+    one XOR a row for each further K block that holds a term of it."""
+    from noise_ec_tpu_torch.ops.xor_factor import (
+        factor_panels,
+        split_bits_rows_panels,
+    )
+
+    rows = tuple(tuple(c - c0 for c in row if c0 <= c < c1)
+                 for row in bits_rows)
+    panels = split_bits_rows_panels(rows, c1 - c0, REF_PANEL_KB,
+                                    REF_PANEL_RB)
+    xors, _ = factor_panels(panels, REF_PANEL_KB)
+    blocks = [len({c // REF_PANEL_KB for c in row}) for row in rows]
+    return xors + sum(max(n - 1, 0) for n in blocks)
+
+
+def panel_bound(bits_rows: tuple, c0: int, c1: int, acc: bool,
+                P: int) -> tuple:
+    """(bound_ms, bound_by) of one panel-matmul launch over input planes
+    [c0, c1) of ``bits_rows``, ``P`` words a plane: those planes read and
+    the R output planes written once (``acc`` read once too); the
+    :func:`panel_xors` of that slice (one more XOR for each row folded
+    into ``acc``) on every plane word."""
+    R = len(bits_rows)
+    nbytes = ((c1 - c0) + R * (2 if acc else 1)) * P * 4
+    xors = panel_xors(bits_rows, c0, c1)
+    if acc:
+        xors += sum(1 for row in bits_rows if any(c0 <= c < c1 for c in row))
+    return bound(nbytes, xors * P)
+
+
+def panel_matrices(codec) -> dict:
+    """The panel-routed matrices the times are taken on, with the int32
+    words a shard the main path gives each: RS(200,56)'s parity and its
+    (56,200) recovery matrix at 1 MiB shards, RS(229,6)'s parity at 64 KiB
+    shards."""
+    from noise_ec_tpu_torch.matrix import (
+        generator_matrix,
+        reconstruction_matrix,
+    )
+
+    gf, M = rs_200_56_parity()
+    G = generator_matrix(gf, 200, 256, "cauchy")
+    present = [i for i in range(256) if i not in set(WIDE_LOST)][:200]
+    out = {
+        "RS(200,56) parity": (M, TW),
+        "RS(200,56) recovery (56,200)": (
+            reconstruction_matrix(gf, G, present, list(WIDE_LOST)), TW),
+        "RS(229,6) parity": (
+            generator_matrix(gf, 229, 235, "cauchy")[229:], (64 << 10) // 4),
+    }
+    for name, (M, _) in out.items():
+        check(codec.route_for(M) == "panel", f"{name} routes panel")
+    return out
+
+
+def phase_panel_times(rng, device, results: dict) -> dict:
+    """K6 and K7 times at RS(200,56), 1 MiB shards, K7 also on the other
+    panel matrices (:func:`panel_matrices`), and the codec's RS(200,56)
+    numbers."""
+    from noise_ec_tpu_torch.codec import ReedSolomon
+    from noise_ec_tpu_torch.matrix import reconstruction_matrix
+    from noise_ec_tpu_torch.ops.dispatch import DeviceCodec
+    from noise_ec_tpu_torch.ops.pack import (
+        pack_words_lanes_blocked,
+        pack_words_lanes_blocked_plain,
+        unpack_words_lanes_blocked,
+        unpack_words_lanes_blocked_plain,
+    )
+    from noise_ec_tpu_torch.ops.panel import (
+        gf2_matmul_panel,
+        gf2_matmul_panel_plain,
+        sublaunch_bounds,
+        sublaunch_count,
+    )
+
+    timer = Timer(device)
+    codec = DeviceCodec(device=device)
+    _, M = rs_200_56_parity()
+    _, threads, prog, _ = codec.plan_for(M)
+    bits_rows = codec.bits_rows_for(M)
+    W8 = TW // 64
+    P = 8 * W8
+    groups = TW // 8
+    words = rand_words(rng, (200, TW), device)
+    planes = pack_words_lanes_blocked(words).reshape(1600, 8, W8)
+    parity_planes = gf2_matmul_panel(prog, planes, threads).reshape(
+        56, 8, 8, W8)
+    # The accumulating launch over the middle of the reference's G = 3
+    # sub-launches, in the plan's K blocks.
+    G3 = sublaunch_count(codec._xor_cost_for(M), prog.PK)
+    lo, hi = sublaunch_bounds(prog.PK, G3)[1:3]
+    c0, c1 = lo * prog.KB, min(hi * prog.KB, 1600)
+    acc = torch.zeros((448, 8, W8), dtype=torch.int32, device=device)
+    acc_plain = acc.clone()
+
+    cases = {
+        "gf2mm_panel": (
+            lambda: gf2_matmul_panel(prog, planes, threads),
+            lambda: gf2_matmul_panel_plain(prog, planes),
+            PLAIN_PANEL_REPS, panel_bound(bits_rows, 0, 1600, False, P),
+        ),
+        "gf2mm_panel_acc": (
+            lambda: gf2_matmul_panel(prog, planes, threads, acc=acc,
+                                     k_slice=(lo, hi)),
+            lambda: gf2_matmul_panel_plain(prog, planes, acc=acc_plain,
+                                           k_slice=(lo, hi)),
+            PLAIN_PANEL_REPS, panel_bound(bits_rows, c0, c1, True, P),
+        ),
+        "pack_lanes_blocked": (
+            lambda: pack_words_lanes_blocked(words),
+            lambda: pack_words_lanes_blocked_plain(words),
+            REPS, bound(400 * SHARD, 200 * groups * TRANSPOSE_OPS),
+        ),
+        "unpack_lanes_blocked": (
+            lambda: unpack_words_lanes_blocked(parity_planes),
+            lambda: unpack_words_lanes_blocked_plain(parity_planes),
+            REPS, bound(112 * SHARD, 56 * groups * TRANSPOSE_OPS),
+        ),
+    }
+    for name, (kernel, plain, plain_reps, (b_ms, b_by)) in cases.items():
+        results[name].update(
+            ms=timer.median_ms(kernel),
+            plain_ms=timer.median_ms(plain, plain_reps, warmup=False),
+            bound_ms=b_ms, bound_by=b_by,
+        )
+    results["gf2mm_panel"]["plan_xors"] = prog.cost
+    results["gf2mm_panel"]["bound_xors"] = panel_xors(bits_rows, 0, 1600)
+
+    words_ms = timer.median_ms(lambda: codec.matmul_words(M, words))
+    rs = ReedSolomon(200, 56, device=str(device))
+    data = [rng.integers(0, 256, size=SHARD, dtype=np.uint8)
+            for _ in range(200)]
+    enc = rs.encode(data)
+    lost = [None if i in set(WIDE_LOST) else s for i, s in enumerate(enc)]
+    rs.reconstruct(lost)
+
+    def host_p50(fn) -> float:
+        times = []
+        for _ in range(WIDE_REPS):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    encode_ms = host_p50(lambda: rs.encode(data))
+    reconstruct_ms = host_p50(lambda: rs.reconstruct(lost))
+    # Host-side pieces of those two calls: gathering the 200 shards into
+    # one array, and the recovery matrix (a 200 x 200 inverse) that every
+    # reconstruct computes before its product.
+    present = [i for i, s in enumerate(lost) if s is not None][:200]
+    stack_ms = host_p50(lambda: np.stack(data))
+    recovery_ms = host_p50(lambda: reconstruction_matrix(
+        rs.gf, rs.G, present, list(WIDE_LOST)))
+
+    # K7 on each panel matrix at its main-path shard size, under the plan
+    # the codec runs it with (the recovery matrix is already planned).
+    by_matrix = {}
+    for name, (Mx, tw) in panel_matrices(rs._dev).items():
+        _, t, pg, _ = rs._dev.plan_for(Mx)
+        br = rs._dev.bits_rows_for(Mx)
+        x = rand_words(rng, (pg.n_inputs, 8, tw // 64), device)
+        b_ms, b_by = panel_bound(br, 0, pg.n_inputs, False, 8 * (tw // 64))
+        by_matrix[name] = {
+            "shard_bytes": 4 * tw, "KB": pg.KB, "RB": pg.RB, "threads": t,
+            "plan_xors": pg.cost, "bound_xors": panel_xors(br, 0, pg.n_inputs),
+            "ms": timer.median_ms(lambda: gf2_matmul_panel(pg, x, t)),
+            "bound_ms": b_ms, "bound_by": b_by,
+        }
+    data_bytes = 200 * SHARD
+    return {
+        "phase": "panel_times", "reps": REPS, "wide_reps": WIDE_REPS,
+        "plain_panel_reps": PLAIN_PANEL_REPS,
+        "acc_k_slice": [lo, hi], "threads": threads,
+        "gf2mm_panel_by_matrix": by_matrix,
+        "rs_200_56_matmul_words_ms": words_ms,
+        "rs_200_56_matmul_words_gbps": data_bytes / words_ms / 1e6,
+        "rs_200_56_encode_ms": encode_ms,
+        "rs_200_56_encode_gbps": data_bytes / encode_ms / 1e6,
+        "rs_200_56_reconstruct_56_erasures_p50_ms": reconstruct_ms,
+        "rs_200_56_host_stack_ms": stack_ms,
+        "rs_200_56_recovery_matrix_ms": recovery_ms,
+    }
+
+
+def phase_panel_sweep(rng, device) -> dict:
+    """The panel matmul under each panel shape and each block size that
+    fits, on each matrix of :func:`panel_matrices`: the evidence for the
+    planner's panel shape."""
+    from noise_ec_tpu_torch.ops.dispatch import DeviceCodec
+    from noise_ec_tpu_torch.ops.network import BLOCK_SIZES, SMEM_BYTES
+    from noise_ec_tpu_torch.ops.panel import (
+        gf2_matmul_panel,
+        panel_plan,
+        resident_threads,
+    )
+
+    timer = Timer(device)
+    codec = DeviceCodec(device=device)
+    rows = []
+    for name, (M, tw) in panel_matrices(codec).items():
+        bits_rows = codec.bits_rows_for(M)
+        C = 8 * M.shape[1]
+        planes = rand_words(rng, (C, 8, tw // 64), device)
+        want = None
+        for KB, RB in ((8, 8), (8, 16), (16, 8), (16, 16), (16, 32),
+                       (32, 8), (32, 16), (32, 32), (32, 64), (64, 16),
+                       (64, 32), (128, 32)):
+            t0 = time.monotonic()
+            chosen, prog, _ = panel_plan(bits_rows, C, KB, RB)
+            prog = prog.to(device)
+            plan_s = time.monotonic() - t0
+            for threads in BLOCK_SIZES:
+                smem = (prog.n_slots + RB) * threads * 4
+                if smem > SMEM_BYTES:
+                    continue
+                out = gf2_matmul_panel(prog, planes, threads)
+                if want is None:
+                    want = out
+                check(torch.equal(out, want),
+                      f"sweep {name} KB={KB} RB={RB} T={threads}")
+                rows.append({
+                    "matrix": name, "KB": KB, "RB": RB, "threads": threads,
+                    "planner": chosen, "temp_cap": prog.temp_cap,
+                    "slots": prog.n_slots, "xors": prog.cost,
+                    "resident_threads": resident_threads(smem, threads),
+                    "plan_seconds": plan_s, "ms": timer.median_ms(
+                        lambda: gf2_matmul_panel(prog, planes, threads), 5),
+                })
+    return {"phase": "panel_sweep", "rows": rows}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--panel-sweep", action="store_true",
+                        help="also time the panel matmul under other plans")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -416,6 +838,14 @@ def main() -> int:
                          "noise_ec_tpu/ops/pallas_gf2mm.py:149"),
         "unpack_lanes": ("noise_ec_tpu_torch/csrc/pack.cu",
                          "noise_ec_tpu/ops/pallas_pack.py:249"),
+        "gf2mm_panel": ("noise_ec_tpu_torch/csrc/panel.cu",
+                        "noise_ec_tpu/ops/pallas_gf2mm.py:471"),
+        "gf2mm_panel_acc": ("noise_ec_tpu_torch/csrc/panel.cu",
+                            "noise_ec_tpu/ops/pallas_gf2mm.py:542"),
+        "pack_lanes_blocked": ("noise_ec_tpu_torch/csrc/pack.cu",
+                               "noise_ec_tpu/ops/pallas_pack.py:374"),
+        "unpack_lanes_blocked": ("noise_ec_tpu_torch/csrc/pack.cu",
+                                 "noise_ec_tpu/ops/pallas_pack.py:394"),
     }
     results = {
         name: {"name": name, "route": "cuda", "source": src,
@@ -424,9 +854,13 @@ def main() -> int:
     }
     emit(phase_build())
     emit(phase_kernels(rng, device, results))
+    emit(phase_panel_kernels(rng, device, results))
     main_path = phase_main_path(rng)
     emit(main_path)
     emit(phase_times(rng, device, results))
+    emit(phase_panel_times(rng, device, results))
+    if args.panel_sweep:
+        emit(phase_panel_sweep(rng, device))
     kernels = []
     for name, res in results.items():
         res["launches"] = main_path["launches"][name]

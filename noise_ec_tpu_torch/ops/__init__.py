@@ -1,10 +1,14 @@
 """The device hot path: GF(2^8) matrix x stripes as a GF(2) XOR network over
 bit-planes, in hand-written CUDA kernels for the H100 (``csrc/``).
 
-- ``pack``     — K2/K3, lane pack and unpack between words and bit-planes
+- ``pack``     — K2/K3, lane pack and unpack between words and bit-planes,
+  and their row-blocked use K6 on the panel route
 - ``gf2mm``    — K4, the sparse GF(2) matmul over tiled planes
 - ``fused``    — K1, pack + network + unpack in one launch, and its planner
-- ``network``  — the factored XOR network as a kernel operand
+- ``panel``    — K7, the block-panel K-tiled matmul for wide geometries,
+  and its planner
+- ``network``  — the factored XOR network (whole or cut into panels) as a
+  kernel operand
 - ``dispatch`` — ``DeviceCodec``: per-matrix plans and the words/stripes
   entry points
 - ``coalesce`` — batching of concurrent same-shape requests
@@ -12,15 +16,17 @@ bit-planes, in hand-written CUDA kernels for the H100 (``csrc/``).
 Each kernel module keeps a ``LAUNCHES`` count of its kernel launches.
 """
 
-from noise_ec_tpu_torch.ops import fused, gf2mm, pack
+from noise_ec_tpu_torch.ops import fused, gf2mm, pack, panel
+
+_COUNTS = (pack.LAUNCHES, gf2mm.LAUNCHES, fused.LAUNCHES, panel.LAUNCHES)
 
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches since the last :func:`reset_launch_counts`."""
-    return {**pack.LAUNCHES, **gf2mm.LAUNCHES, **fused.LAUNCHES}
+    return {name: n for counts in _COUNTS for name, n in counts.items()}
 
 
 def reset_launch_counts() -> None:
-    for counts in (pack.LAUNCHES, gf2mm.LAUNCHES, fused.LAUNCHES):
+    for counts in _COUNTS:
         for name in counts:
             counts[name] = 0

@@ -29,7 +29,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("pack", "gf2mm", "fused")
+SOURCES = ("pack", "gf2mm", "fused", "panel")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -44,6 +44,8 @@ _SIGNATURES = {
     "ec_gf2mm": [_p, _p, _i, _ll, _i, _i, _p, _i, _p, _p, _i, _i, _p],
     "ec_fused": [_p, _p, _i, _i, _i, _ll, _i, _p, _i, _p, _p, _p, _i, _i,
                  _p],
+    "ec_panel": [_p, _p, _i, _ll, _i, _i, _i, _i, _i, _i, _i, _i, _p, _p, _p,
+                 _p, _p, _i, _i, _p],
 }
 
 _lock = threading.Lock()

@@ -1,12 +1,15 @@
 """Geometry-cached device codec: the bridge from GF matrices to the kernels.
 
 Port of ``noise_ec_tpu.ops.dispatch.DeviceCodec`` for GF(2^8) on the
-"baked" route. One primitive carries both reference hot loops: encode is
-``parity_rows @ data`` (main.go:262), reconstruct is
+"baked" and "panel" routes. One primitive carries both reference hot
+loops: encode is ``parity_rows @ data`` (main.go:262), reconstruct is
 ``inverted_submatrix_rows @ survivors`` (main.go:77). Per matrix the codec
-caches the bit network's plan — the fused kernel K1 (ops/fused.py) when
-its shared-memory slots fit, else the K2 -> K4 -> K3 pipeline
-(ops/pack.py, ops/gf2mm.py) — with the program uploaded to the card once.
+caches the bit network's plan, with the program uploaded to the card once:
+on the baked route the fused kernel K1 (ops/fused.py) when its
+shared-memory slots fit, else the K2 -> K4 -> K3 pipeline (ops/pack.py,
+ops/gf2mm.py); on the panel route (wide codes, :meth:`DeviceCodec.route_for`)
+the row-blocked pack K6 -> the block-panel matmul K7 (ops/panel.py) ->
+the row-blocked unpack.
 
 The codec runs on ``device`` ("cuda" unless the caller asks for "cpu").
 On the CPU every wrapper takes its kernel's plain PyTorch version; on the
@@ -14,8 +17,8 @@ card it launches the kernel or raises. Nothing falls back: an unported
 route raises NotImplementedError, a build or launch error raises.
 
 Left out for now (ROADMAP queue 1): the codec breaker and its prober, the
-``DeviceGate`` admission queue, ``obs/device.py`` telemetry, the "panel"
-and "mxu" routes, GF(2^16), and the mesh tier.
+``DeviceGate`` admission queue, ``obs/device.py`` telemetry, the "mxu"
+route (with GF(2^16), the only path that reaches it), and the mesh tier.
 """
 
 from __future__ import annotations
@@ -35,13 +38,16 @@ from noise_ec_tpu_torch.ops.gf2mm import (
     gf2_matmul_sparse,
     sparse_plan,
 )
-from noise_ec_tpu_torch.ops.network import BLOCK_SIZES, SMEM_BYTES, XorProgram
+from noise_ec_tpu_torch.ops.network import BLOCK_SIZES, SMEM_BYTES
 from noise_ec_tpu_torch.ops.pack import (
     lane_quantum,
     lane_tl,
     pack_words_lanes,
+    pack_words_lanes_blocked,
     unpack_words_lanes,
+    unpack_words_lanes_blocked,
 )
+from noise_ec_tpu_torch.ops.panel import gf2_matmul_panel_chain, panel_plan
 
 # Whole-network factoring is super-linear in the network's terms and runs
 # on the host once per matrix (RS(50,20), ~32k raw XORs, takes seconds in
@@ -58,8 +64,15 @@ _BAKED_XOR_BUDGET = 60_000
 _BAKED_MAX_ROWS = SMEM_BYTES // (8 * BLOCK_SIZES[-1] * 4)
 
 # Past this raw-XOR budget the reference leaves the XOR-network kernels for
-# the dense MXU product (pallas_gf2mm.PANEL_XOR_BUDGET).
+# the dense MXU product (pallas_gf2mm.PANEL_XOR_BUDGET). No GF(2^8) matrix
+# of k + r <= 256 shards reaches it: RS(128,128)'s parity network, the
+# widest, has 533,504.
 PANEL_XOR_BUDGET = 600_000
+
+_MXU_UNPORTED = (
+    "matrix exceeds the panel-tier XOR budget: the MXU route is not ported "
+    "yet (ROADMAP queue 1, item 4, with GF(2^16), its only other path)"
+)
 
 # Pad-to multiple of the words entries: the lane-pack grouping unit at
 # TL = 128 (8*8*128 words, 32 KiB per GF(2^8) shard), as in the reference.
@@ -129,7 +142,7 @@ class DeviceCodec:
         self.gf: GF = GF256()
         self._rows_cache: dict[bytes, tuple] = {}
         self._cost_cache: dict[bytes, int] = {}
-        self._plan_cache: dict[tuple, tuple[str, int, XorProgram]] = {}
+        self._plan_cache: dict[tuple, tuple] = {}
         self._pool = StagingPool(pin=self.device.type == "cuda")
 
     def _key(self, M: np.ndarray) -> bytes:
@@ -140,10 +153,7 @@ class DeviceCodec:
         bit matrix (cached). A network past the panel tier's XOR budget
         never reaches factoring."""
         if self._xor_cost_for(M) > PANEL_XOR_BUDGET:
-            raise NotImplementedError(
-                "matrix exceeds the panel-tier XOR budget: the MXU route is "
-                "not ported yet (ROADMAP queue 1, item 5)"
-            )
+            raise NotImplementedError(_MXU_UNPORTED)
         M = np.ascontiguousarray(np.asarray(M, dtype=self.gf.dtype))
         key = self._key(M)
         hit = self._rows_cache.get(key)
@@ -169,10 +179,10 @@ class DeviceCodec:
         return hit
 
     def route_for(self, M: np.ndarray) -> str:
-        """Which kernel family runs this matrix: "baked" (the XOR-network
-        kernels of this slice), "panel" (wide geometries) or "mxu" (past
-        every XOR-network budget) — the reference's three-way answer, with
-        the port's thresholds (module constants)."""
+        """Which kernel family runs this matrix: "baked" (K1, or K2 -> K4
+        -> K3), "panel" (wide geometries: K6 -> K7) or "mxu" (past every
+        XOR-network budget) — the reference's three-way answer, with the
+        port's thresholds (module constants)."""
         k = np.asarray(M).shape[1]
         cost = self._xor_cost_for(M)
         if cost > PANEL_XOR_BUDGET:
@@ -181,21 +191,28 @@ class DeviceCodec:
             return "panel"
         return "baked"
 
-    def plan_for(self, M: np.ndarray,
-                 tier: Optional[str] = None) -> tuple[str, int, XorProgram]:
-        """(tier, threads, program on the codec's device) for ``M``.
+    def plan_for(self, M: np.ndarray, tier: Optional[str] = None) -> tuple:
+        """(kind, threads, program on the codec's device, G) for ``M``,
+        cached per matrix: G is the number of launches the product's K axis
+        is split into.
 
-        ``tier`` None takes the planner's choice: "fused" when K1's slots
-        fit (ops/fused.py), else "pipeline". Passing "fused" or
-        "pipeline" forces one, as the reference's plan override does;
-        forcing "fused" on a matrix K1 cannot hold raises."""
+        On the baked route, ``tier`` None takes the planner's choice:
+        "fused" when K1's slots fit (ops/fused.py), else "pipeline"; G is
+        1. Passing "fused" or "pipeline" forces one, as the reference's
+        plan override does; forcing "fused" on a matrix K1 cannot hold
+        raises. A panel-routed matrix plans kind "panel" with a
+        :class:`~noise_ec_tpu_torch.ops.network.PanelProgram` and the
+        planner's G (ops/panel.py :func:`panel_plan`), and takes no tier.
+        The "mxu" route raises NotImplementedError."""
         if tier not in _TIERS:
             raise ValueError(f"unknown tier {tier!r}")
         route = self.route_for(M)
-        if route != "baked":
-            raise NotImplementedError(
-                f"the {route!r} route is not ported yet (ROADMAP queue 1, "
-                "item 5: panel/MXU)"
+        if route == "mxu":
+            raise NotImplementedError(_MXU_UNPORTED)
+        if route == "panel" and tier is not None:
+            raise ValueError(
+                f"tier {tier!r} forces a baked-route kernel; this matrix "
+                "routes 'panel'"
             )
         M = np.ascontiguousarray(np.asarray(M, dtype=self.gf.dtype))
         key = (self._key(M), tier)
@@ -203,16 +220,20 @@ class DeviceCodec:
         if hit is None:
             bits_rows = self.bits_rows_for(M)
             C = 8 * M.shape[1]
-            plan = fused_plan(bits_rows, C) if tier != "pipeline" else None
-            if plan is not None:
-                kind = "fused"
-            elif tier == "fused":
-                raise ValueError("no fused-kernel plan fits this matrix")
+            if route == "panel":
+                threads, prog, G = panel_plan(bits_rows, C)
+                hit = ("panel", threads, prog, G)
             else:
-                kind = "pipeline"
-                plan = sparse_plan(bits_rows, C)
-            threads, prog = plan
-            hit = (kind, threads, prog.to(self.device))
+                plan = fused_plan(bits_rows, C) if tier != "pipeline" else None
+                if plan is not None:
+                    kind = "fused"
+                elif tier == "fused":
+                    raise ValueError("no fused-kernel plan fits this matrix")
+                else:
+                    kind = "pipeline"
+                    plan = sparse_plan(bits_rows, C)
+                hit = (kind,) + tuple(plan) + (1,)
+            hit = hit[:2] + (hit[2].to(self.device), hit[3])
             if len(self._plan_cache) > 1024:
                 self._plan_cache.clear()
             self._plan_cache[key] = hit
@@ -246,7 +267,7 @@ class DeviceCodec:
             raise ValueError(
                 f"words on {words.device}, codec on {self.device}"
             )
-        kind, threads, prog = self.plan_for(M, tier)
+        kind, threads, prog, G = self.plan_for(M, tier)
         B, _, TW = words.shape
         TWp = pad_words(TW)
         if TWp != TW:
@@ -255,6 +276,14 @@ class DeviceCodec:
         tl = lane_tl(TWp)
         if kind == "fused":
             out = fused_encode_words(prog, words, r, threads, tl)
+        elif kind == "panel":
+            # Pack and unpack share the blocked TL by construction.
+            W8 = TWp // 64
+            planes = pack_words_lanes_blocked(words.reshape(B * k, TWp))
+            out = gf2_matmul_panel_chain(
+                prog, planes.reshape(B, 8 * k, 8, W8), threads, G)
+            out = unpack_words_lanes_blocked(out.reshape(B * r, 8, 8, W8))
+            out = out.reshape(B, r, TWp)
         else:
             W8 = TWp // 64
             planes = pack_words_lanes(words.reshape(B * k, TWp), tl)

@@ -21,17 +21,28 @@ slots first) has no negative codes and maps input plane c to slot
 ``inputs_in_slots=False`` (the standalone sparse matmul) keeps every input
 in device memory, so only temporaries take slots and a temp cap bounds
 shared memory whatever the input width.
+
+A wide network is cut into panels instead (:func:`compile_panels`): each
+(row block, K block) panel is factored and slotted on its own, and the
+panels are concatenated into one :class:`PanelProgram` for the panel
+kernel (ops/panel.py).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import heapq
 from dataclasses import dataclass
 from typing import Optional
 
 import torch
 
-from noise_ec_tpu_torch.ops.xor_factor import factored_cost, paar_factor_capped
+from noise_ec_tpu_torch.ops.xor_factor import (
+    factored_cost,
+    paar_factor_capped,
+    panel_raw_costs,
+    split_bits_rows_panels,
+)
 
 # paar_factor's own "no cap" default.
 NO_CAP = 100_000
@@ -40,6 +51,11 @@ NO_CAP = 100_000
 # 228 KB): the budget for n_slots * threads * 4 bytes of slots.
 SMEM_BYTES = 232_448
 BLOCK_SIZES = (256, 128, 64, 32)
+
+
+def _i32(x, shape=None) -> torch.Tensor:
+    t = torch.tensor(x, dtype=torch.int32)
+    return t.reshape(shape) if shape is not None else t
 
 
 def fits(prog: "XorProgram", threads: int) -> bool:
@@ -126,15 +142,11 @@ def compile_network(bits_rows: tuple, C: int, max_temps: int = NO_CAP,
         terms.extend(code(v) for v in row)
         row_ptr.append(len(terms))
 
-    def i32(x, shape=None):
-        t = torch.tensor(x, dtype=torch.int32)
-        return t.reshape(shape) if shape is not None else t
-
     return XorProgram(
-        ops=i32(prog_ops, (len(prog_ops), 3)),
-        row_ptr=i32(row_ptr),
-        row_terms=i32(terms),
-        in_slot=None if in_slot is None else i32(in_slot),
+        ops=_i32(prog_ops, (len(prog_ops), 3)),
+        row_ptr=_i32(row_ptr),
+        row_terms=_i32(terms),
+        in_slot=None if in_slot is None else _i32(in_slot),
         n_inputs=C,
         n_slots=n_slots,
         cost=factored_cost(ops, rows),
@@ -167,4 +179,128 @@ def eval_program(prog: XorProgram, planes: torch.Tensor) -> torch.Tensor:
     for r in range(prog.n_rows):
         for code in terms[ptr[r]:ptr[r + 1]]:
             out[r] ^= val(code)
+    return out
+
+
+@dataclass(frozen=True)
+class PanelProgram:
+    """A wide network cut into PR x PK panels of RB output rows over KB
+    input planes, each panel its own slotted program (module doc).
+
+    Panel ``i = pr * PK + pk`` covers output rows [pr*RB, (pr+1)*RB) and
+    input planes [pk*KB, (pk+1)*KB). Its ops are ``ops[op_ptr[i]:
+    op_ptr[i+1]]``, its row r is CSR row ``i * RB + r`` of
+    (``row_ptr``, ``row_terms``), and its panel-local input plane c sits
+    in slot ``in_slot[i * KB + c]`` (-1 for a plane no term of the panel
+    reads). Every operand code is a slot: the kernel stages a panel's
+    inputs into their slots before it runs the panel's ops, so the panel
+    reads nothing from device memory while it runs.
+    """
+
+    ops: torch.Tensor  # (n_ops, 3) int32: dst slot, slot a, slot b
+    op_ptr: torch.Tensor  # (PR * PK + 1,) int32
+    row_ptr: torch.Tensor  # (PR * PK * RB + 1,) int32
+    row_terms: torch.Tensor  # (nnz,) int32 slots
+    in_slot: torch.Tensor  # (PR * PK * KB,) int32
+    n_inputs: int  # C
+    n_rows: int  # R
+    KB: int
+    RB: int
+    n_slots: int  # the largest panel's peak live values
+    temp_cap: int  # the temporaries each panel's factoring may keep
+    cost: int  # two-input XORs over all panels
+    raw: int  # the same panels' unfactored XORs
+    panel_costs: tuple  # per panel, in panel order
+
+    @property
+    def PR(self) -> int:
+        return -(-self.n_rows // self.RB)
+
+    @property
+    def PK(self) -> int:
+        return -(-self.n_inputs // self.KB)
+
+    def to(self, device) -> "PanelProgram":
+        """The same program with its tensors on ``device``."""
+        return dataclasses.replace(
+            self, ops=self.ops.to(device), op_ptr=self.op_ptr.to(device),
+            row_ptr=self.row_ptr.to(device),
+            row_terms=self.row_terms.to(device),
+            in_slot=self.in_slot.to(device),
+        )
+
+
+def compile_panels(bits_rows: tuple, C: int, KB: int, RB: int,
+                   temp_cap: int) -> PanelProgram:
+    """Cut ``bits_rows`` (R rows over C planes) into RB x KB panels
+    (``split_bits_rows_panels``), compile each with
+    ``compile_network(..., max_temps=temp_cap, inputs_in_slots=True)``
+    and concatenate them into one :class:`PanelProgram` on the CPU.
+
+    Inputs take slots: the kernel parks a panel's KB input words in shared
+    memory anyway, and a slot allocated by liveness is handed to a
+    temporary once its input is read for the last time, so a panel's
+    peak (``n_slots``) is below KB + its temporaries."""
+    panels = split_bits_rows_panels(bits_rows, C, KB, RB)
+    ops: list = []
+    op_ptr = [0]
+    row_ptr = [0]
+    terms: list = []
+    in_slot: list = []
+    costs = []
+    n_slots = 0
+    for row in panels:
+        for net in row:
+            prog = compile_network(net, KB, max_temps=temp_cap)
+            ops.extend(prog.ops.tolist())
+            op_ptr.append(len(ops))
+            base = len(terms)
+            terms.extend(prog.row_terms.tolist())
+            row_ptr.extend(base + x for x in prog.row_ptr.tolist()[1:])
+            in_slot.extend(prog.in_slot.tolist())
+            costs.append(prog.cost)
+            n_slots = max(n_slots, prog.n_slots)
+
+    return PanelProgram(
+        ops=_i32(ops, (len(ops), 3)), op_ptr=_i32(op_ptr),
+        row_ptr=_i32(row_ptr), row_terms=_i32(terms), in_slot=_i32(in_slot),
+        n_inputs=C, n_rows=len(bits_rows), KB=KB, RB=RB, n_slots=n_slots,
+        temp_cap=temp_cap, cost=sum(costs), raw=panel_raw_costs(panels)[0],
+        panel_costs=tuple(costs),
+    )
+
+
+def eval_panels(prog: PanelProgram, planes: torch.Tensor,
+                k_slice: Optional[tuple[int, int]] = None,
+                acc: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch evaluation of ``prog`` over ``planes`` (C, ...) ->
+    (R, ...): per row block, the XOR over the K blocks of ``k_slice``
+    (default all) of each panel's program, slot for slot as the kernel
+    runs it. With ``acc`` (R, ...) the sums are XORed into it in place
+    and it is returned."""
+    C, R, KB, RB = prog.n_inputs, prog.n_rows, prog.KB, prog.RB
+    if planes.shape[0] != C:
+        raise ValueError(f"program takes {C} planes, got {planes.shape[0]}")
+    lo, hi = (0, prog.PK) if k_slice is None else k_slice
+    shape = planes.shape[1:]
+    out = acc if acc is not None else planes.new_zeros((R,) + shape)
+    ops = prog.ops.tolist()
+    op_ptr = prog.op_ptr.tolist()
+    row_ptr = prog.row_ptr.tolist()
+    terms = prog.row_terms.tolist()
+    in_slot = prog.in_slot.tolist()
+    for pr in range(prog.PR):
+        for pk in range(lo, hi):
+            i = pr * prog.PK + pk
+            slots: list = [None] * prog.n_slots
+            for c in range(KB):
+                s = in_slot[i * KB + c]
+                if s >= 0:
+                    slots[s] = planes[pk * KB + c]
+            for t, a, b in ops[op_ptr[i]:op_ptr[i + 1]]:
+                slots[t] = slots[a] ^ slots[b]
+            for r in range(min(RB, R - pr * RB)):
+                e0, e1 = row_ptr[i * RB + r], row_ptr[i * RB + r + 1]
+                for e in range(e0, e1):
+                    out[pr * RB + r] ^= slots[terms[e]]
     return out

@@ -14,6 +14,12 @@ Words are int32 views of the shard bytes: torch cannot shift uint32 on
 the CPU. ``>>`` on int32 is arithmetic, which is exact here because every
 right shift of the delta-swap is masked to bits the sign cannot reach.
 
+The row-blocked pair (:func:`pack_words_lanes_blocked`,
+:func:`unpack_words_lanes_blocked`) is the reference's wide-geometry
+variant (``_pack_lanes_blocked_call`` / ``_unpack_lanes_blocked_call``,
+K6): the same kernels, at the TL the reference pins to a 32-row block, so
+the panel pipeline's two ends agree whatever the row counts.
+
 Each kernel has a plain PyTorch version beside it. The wrappers take the
 plain version only for a tensor on the CPU; a CUDA tensor launches the
 kernel or raises. ``LAUNCHES`` counts kernel launches.
@@ -26,7 +32,14 @@ import torch
 from noise_ec_tpu_torch.ops import _build
 
 _ROUNDS = ((1, 0x55555555), (2, 0x33333333), (4, 0x0F0F0F0F))
-LAUNCHES = {"pack_lanes": 0, "unpack_lanes": 0}
+LAUNCHES = {"pack_lanes": 0, "unpack_lanes": 0, "pack_lanes_blocked": 0,
+            "unpack_lanes_blocked": 0}
+
+# The reference's row block for the wide-geometry pack, and the VMEM budget
+# its TL rule sizes that block's double-buffered in and out tiles against
+# (pallas_pack.PACK_ROW_BLOCK, _LANE_VMEM_BUDGET).
+PACK_ROW_BLOCK = 32
+_LANE_VMEM_BUDGET = 12 << 20
 
 
 def lane_quantum(m: int = 8) -> int:
@@ -45,6 +58,20 @@ def lane_tl(TW: int) -> int:
     the bijection (and the run a warp's loads cover)."""
     for TL in (512, 256, 128):
         if TW % (64 * TL) == 0:
+            return TL
+    raise ValueError(f"word count {TW} is not a multiple of {lane_quantum()}")
+
+
+def blocked_lane_tl(TW: int) -> int:
+    """The blocked pair's TL: the reference's ``_lane_tl(TW, 8, 32)``, the
+    largest TL in {512, 256, 128} dividing W8 = TW / 64 whose 32-row tiles
+    fit its VMEM budget — 256 whenever it divides (1 MiB shards), else
+    128. A CUDA thread packs one 8-word group whatever the row count, so
+    the reference's row-block grid axis, there only to fit VMEM, has no
+    counterpart here; only the TL it implies carries over."""
+    for TL in (512, 256, 128):
+        fits_vmem = PACK_ROW_BLOCK * 64 * TL * 4 * 4 <= _LANE_VMEM_BUDGET
+        if TW % (64 * TL) == 0 and fits_vmem:
             return TL
     raise ValueError(f"word count {TW} is not a multiple of {lane_quantum()}")
 
@@ -97,10 +124,7 @@ def unpack_words_lanes_plain(planes: torch.Tensor, tl: int) -> torch.Tensor:
     return transpose8(V, 3).reshape(rows, 64 * W8).contiguous()
 
 
-def pack_words_lanes(words: torch.Tensor, tl: int) -> torch.Tensor:
-    """K2: (rows, TW) int32 words -> (rows, 8, 8, TW/64) tiled planes.
-    TW must be a multiple of 64*tl. Inverse: :func:`unpack_words_lanes`
-    at the same ``tl``."""
+def _pack(words: torch.Tensor, tl: int, counter: str) -> torch.Tensor:
     TW = words.shape[-1]
     _check(words, 2, TW, tl)
     if words.device.type == "cpu":
@@ -109,12 +133,11 @@ def pack_words_lanes(words: torch.Tensor, tl: int) -> torch.Tensor:
     out = torch.empty((rows, 8, 8, TW // 64), dtype=torch.int32,
                       device=words.device)
     _launch("ec_pack_lanes", words, out, rows, TW, tl)
-    LAUNCHES["pack_lanes"] += 1
+    LAUNCHES[counter] += 1
     return out
 
 
-def unpack_words_lanes(planes: torch.Tensor, tl: int) -> torch.Tensor:
-    """K3: (rows, 8, 8, W8) int32 planes -> (rows, 64*W8) words."""
+def _unpack(planes: torch.Tensor, tl: int, counter: str) -> torch.Tensor:
     TW = 64 * planes.shape[-1]
     _check(planes, 4, TW, tl)
     if planes.shape[1:3] != (8, 8):
@@ -125,5 +148,42 @@ def unpack_words_lanes(planes: torch.Tensor, tl: int) -> torch.Tensor:
     rows = planes.shape[0]
     out = torch.empty((rows, TW), dtype=torch.int32, device=planes.device)
     _launch("ec_unpack_lanes", planes, out, rows, TW, tl)
-    LAUNCHES["unpack_lanes"] += 1
+    LAUNCHES[counter] += 1
     return out
+
+
+def pack_words_lanes(words: torch.Tensor, tl: int) -> torch.Tensor:
+    """K2: (rows, TW) int32 words -> (rows, 8, 8, TW/64) tiled planes.
+    TW must be a multiple of 64*tl. Inverse: :func:`unpack_words_lanes`
+    at the same ``tl``."""
+    return _pack(words, tl, "pack_lanes")
+
+
+def unpack_words_lanes(planes: torch.Tensor, tl: int) -> torch.Tensor:
+    """K3: (rows, 8, 8, W8) int32 planes -> (rows, 64*W8) words."""
+    return _unpack(planes, tl, "unpack_lanes")
+
+
+def pack_words_lanes_blocked_plain(words: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch K6 pack: K2's plain version at :func:`blocked_lane_tl`."""
+    return pack_words_lanes_plain(words, blocked_lane_tl(words.shape[-1]))
+
+
+def unpack_words_lanes_blocked_plain(planes: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch K6 unpack: K3's plain version at the blocked TL."""
+    return unpack_words_lanes_plain(
+        planes, blocked_lane_tl(64 * planes.shape[-1]))
+
+
+def pack_words_lanes_blocked(words: torch.Tensor) -> torch.Tensor:
+    """K6 pack: (rows, TW) int32 words -> (rows, 8, 8, TW/64) planes at
+    the blocked TL, any row count; K2's kernel with its own launch count.
+    Inverse: :func:`unpack_words_lanes_blocked`."""
+    return _pack(words, blocked_lane_tl(words.shape[-1]), "pack_lanes_blocked")
+
+
+def unpack_words_lanes_blocked(planes: torch.Tensor) -> torch.Tensor:
+    """K6 unpack: (rows, 8, 8, W8) planes at the blocked TL -> (rows,
+    64*W8) words; K3's kernel with its own launch count."""
+    return _unpack(planes, blocked_lane_tl(64 * planes.shape[-1]),
+                   "unpack_lanes_blocked")

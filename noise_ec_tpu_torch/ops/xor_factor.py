@@ -30,7 +30,9 @@ _PAIR_MASK = (1 << _PAIR_BITS) - 1
 _FREQ_TOP = 1 << _ID_BITS
 
 
-@functools.lru_cache(maxsize=512)
+# Sized for a panel-routed network: RS(200,56) at 32-column panels has 700
+# panels, each factored once here and read again by its capped replays.
+@functools.lru_cache(maxsize=4096)
 def paar_factor(
     bits_rows: tuple[tuple[int, ...], ...],
     num_inputs: int,
@@ -229,6 +231,28 @@ def split_bits_rows_panels(
             )
         out.append(tuple(row_panels))
     return tuple(out)
+
+
+def panel_raw_costs(panels) -> tuple[int, int]:
+    """(total, max_single) raw XOR cost over a panel grid — the
+    planner's cheap pre-factoring score inputs."""
+    costs = [xor_cost(p) for row in panels for p in row]
+    return sum(costs), max(costs) if costs else 0
+
+
+def factor_panels(panels, KB: int, max_temps: int = 100_000):
+    """Factor every panel (cached per panel via paar_factor) and return
+    ``(total_factored_cost, max_temps_used)`` — the exact numbers the
+    panel planner sizes shared memory from, where a pre-factoring
+    estimate would be a ratio."""
+    total = 0
+    worst = 0
+    for row in panels:
+        for p in row:
+            ops, rem = paar_factor_capped(p, KB, max_temps)
+            total += factored_cost(ops, rem)
+            worst = max(worst, len(ops))
+    return total, worst
 
 
 def factored_cost(

@@ -228,20 +228,34 @@ def test_default_device_is_the_card():
     ReedSolomon(4, 2, backend="numpy")  # the host backend needs no card
 
 
-def test_unported_routes_raise():
+def test_unported_routes_raise(monkeypatch):
+    """The panel route runs; GF(2^16) and the MXU route still raise. No
+    GF(2^8) matrix reaches the MXU budget, so a lowered budget sends
+    RS(100,30) there."""
+    import noise_ec_tpu_torch.ops.dispatch as dispatch
+
     codec = DeviceCodec(device="cpu")
     G = generator_matrix(GF256(), 100, 130, "cauchy")
     assert codec.route_for(G[100:]) == "panel"
     rs = ReedSolomon(100, 30, device="cpu")
-    data = [np.zeros(64, dtype=np.uint8)] * 100
-    with pytest.raises(NotImplementedError, match="panel"):
-        rs.encode(data)
-    with pytest.raises(NotImplementedError, match="panel"):
-        codec.matmul_stripes(G[100:], np.zeros((100, 64), np.uint8))
+    rng = np.random.default_rng(100)
+    data = list(rng.integers(0, 256, size=(100, 64), dtype=np.uint8))
+    want = RefRS(100, 30, backend="numpy").encode(data)
+    assert _same(rs.encode(data), want)
+    np.testing.assert_array_equal(
+        codec.matmul_stripes(G[100:], np.stack(data)), np.stack(want[100:])
+    )
     with pytest.raises(NotImplementedError, match="GF"):
         ReedSolomon(4, 2, field="gf65536", device="cpu")
     with pytest.raises(NotImplementedError, match="GF"):
         DeviceCodec(field="gf65536", device="cpu")
+    monkeypatch.setattr(dispatch, "PANEL_XOR_BUDGET", 90_000)
+    mxu = DeviceCodec(device="cpu")
+    assert mxu.route_for(G[100:]) == "mxu"
+    with pytest.raises(NotImplementedError, match="MXU"):
+        mxu.matmul_stripes(G[100:], np.stack(data))
+    with pytest.raises(NotImplementedError, match="MXU"):
+        ReedSolomon(100, 30, device="cpu").encode(data)
 
 
 def test_words_on_another_device_are_refused():

@@ -110,8 +110,8 @@ def test_planner_caps_temps_then_gives_up(monkeypatch):
         budget(100 * 32 * 4)  # 20 temps over 80 inputs cost far too much
         assert fused.fused_plan(br, 80) is None
         codec = DeviceCodec(device="cpu")
-        kind, threads, prog = codec.plan_for(M)
-        assert kind == "pipeline" and prog.in_slot is None
+        kind, threads, prog, G = codec.plan_for(M)
+        assert kind == "pipeline" and prog.in_slot is None and G == 1
         with pytest.raises(ValueError, match="no fused-kernel plan"):
             codec.plan_for(M, "fused")
     finally:
