@@ -13,6 +13,10 @@ before printing any result. Phases (one JSON line each):
    rows) and the panel matmul in one launch and in the reference's three
    sub-launches, each against its plain version and the two against each
    other;
+   gf16_kernels — the dense GF(2) product K8 against its plain version at
+   full width on RS(200,56)'s GF(2^16) parity (1 MiB shards, 400 byte
+   rows) and on a dense (200, 200) GF(2^8) matrix, and the 16-plane pack
+   and unpack K10 at RS(10,4)'s GF(2^16) shapes, with their round trip;
 3. main_path — ``ReedSolomon(10, 4)`` on the card: split a 10 MiB object,
    encode, verify, lose shards {0, 5, 11}, reconstruct, join; a batch of
    five 1 MiB stripes through the coalescer; RS(4,2) on a 64 KiB message;
@@ -23,13 +27,25 @@ before printing any result. Phases (one JSON line each):
    and ``ReedSolomon(229, 6)`` at 64 KiB shards. Launch counts are zeroed
    just before each path and read just after, and every kernel of a path
    must have launched (the accumulating panel launch is on no path: the
-   planner splits no K axis);
+   planner splits no K axis). Then GF(2^16): ``ReedSolomon(10, 4,
+   field="gf65536")`` on a 10 MiB object (K1 over 20 byte rows) and
+   ``ReedSolomon(200, 56, field="gf65536")`` on a 200 MiB object (K8 on
+   encode and on the 56-erasure reconstruct), each through encode, verify,
+   reconstruct, reconstruct_data and join; the interleaved-u16
+   ``matmul_words`` (K10 around K4 at RS(10,4), around K7 at RS(60,20)),
+   equal to the byte-sliced entry's result; and a dense (200, 200) GF(2^8)
+   matrix through ``matmul_stripes`` (K8);
 4. times — CUDA-event medians with the L2 cache flushed between launches:
    each kernel and its plain version beside the least time the card could
    take, the codec's RS(10,4) encode rate (device-resident words and end
    to end from host arrays) and reconstruct p50 at 3 erasures, and the
    same three numbers for RS(200,56) at 1 MiB shards; the panel matmul
-   also on the (56,200) recovery matrix and on RS(229,6)'s parity.
+   also on the (56,200) recovery matrix and on RS(229,6)'s parity;
+   gf16_times — K8 beside its bound and beside ``torch._int_mm`` on the
+   pre-expanded bits (a yardstick for the dot alone), K10 beside its byte
+   bounds, ``matmul_words_bytesliced`` and the interleaved ``matmul_words``,
+   ``encode`` GB/s and ``reconstruct`` p50 at 3 and at 56 erasures over
+   GF(2^16), and the seconds to plan a new recovery matrix.
 
 Then a ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
 ``--panel-sweep`` adds, before those two lines, the panel matmul's time
@@ -70,15 +86,22 @@ WIDE_LOST = tuple(range(0, 56, 2)) + tuple(range(200, 256, 2))
 # figure, which counts 128 FMA lanes at 2 flops each).
 HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 132 * 64 * 1.98e9
-# 3 delta-swap rounds x 4 pairs x 6 ops per 8-word group transpose.
+# Dense int8 tensor-core operations (multiply and add each count one).
+INT8_OPS_PER_S = 1.979e15
+# 3 delta-swap rounds x 4 pairs x 6 ops per 8-word group transpose; 4
+# rounds x 8 pairs x 6 ops per 16-word group.
 TRANSPOSE_OPS = 72
+TRANSPOSE16_OPS = 192
+# Int32 words a GF(2^16) shard's byte row holds in the byte-sliced layout.
+TWB = SHARD // 8
 # A panel matmul's bound charges the XORs of the network cut into the
 # reference's 128 x 32 panels (pallas_gf2mm's panel plan), each factored
 # uncapped, whatever panels the planner picks: a plan that factors worse
 # does not loosen its own bound.
 REF_PANEL_KB, REF_PANEL_RB = 128, 32
-LIBRARY_NOTE = ("no single PyTorch call computes a GF(2^8) matrix product "
-                "or this bit transpose")
+LIBRARY_NOTE = ("no single PyTorch call computes a GF(2^8) or GF(2^16) "
+                "matrix product, a GF(2) product that unpacks, takes parity "
+                "and repacks, or these bit transposes")
 
 
 def emit(obj: dict) -> None:
@@ -340,6 +363,217 @@ def phase_panel_kernels(rng, device, results: dict) -> dict:
     }
 
 
+
+def rs16_200_56_parity():
+    from noise_ec_tpu_torch.gf import GF65536
+    from noise_ec_tpu_torch.matrix import generator_matrix
+
+    gf = GF65536()
+    return gf, generator_matrix(gf, 200, 256, "cauchy")[200:]
+
+
+def bytes_as_u16(words: torch.Tensor, ncols: int) -> np.ndarray:
+    """The first ``ncols`` byte columns of byte-sliced words (2k, TW) as the
+    (k, ncols) u16 symbols they hold."""
+    from noise_ec_tpu_torch.ops.pack import unpack_u16_bytesliced
+
+    return unpack_u16_bytesliced(
+        words[:, :ncols // 4].cpu().numpy().view(np.uint8))
+
+
+def phase_gf16_kernels(rng, device, results: dict) -> dict:
+    """K8 at full width on RS(200,56)'s GF(2^16) parity and a dense (200,
+    200) GF(2^8) matrix, and K10 at RS(10,4)'s GF(2^16) shapes, each against
+    its plain version on the card, K8 also against the NumPy field
+    arithmetic on a 64 KiB slice."""
+    from noise_ec_tpu_torch.gf import GF256
+    from noise_ec_tpu_torch.matrix import host_matvec
+    from noise_ec_tpu_torch.ops.dispatch import DeviceCodec
+    from noise_ec_tpu_torch.ops.mxu import (
+        mxu_encode_words_bits,
+        mxu_encode_words_bits_plain,
+    )
+    from noise_ec_tpu_torch.ops.pack import (
+        pack_words16,
+        pack_words16_plain,
+        unpack_words16,
+        unpack_words16_plain,
+    )
+
+    report = {"phase": "gf16_kernels"}
+    gf16, M = rs16_200_56_parity()
+    codec16 = DeviceCodec(field="gf65536", device=device)
+    check(codec16.route_for(M) == "mxu", "GF(2^16) RS(200,56) routes mxu")
+    t0 = time.monotonic()
+    kind, _, m2, _ = codec16.plan_for(M)
+    plan_s = time.monotonic() - t0
+    words = rand_words(rng, (400, TWB), device)
+    out = mxu_encode_words_bits(m2, words, 112, 400)
+    err = max_abs_err(out, mxu_encode_words_bits_plain(m2, words, 112, 400))
+    host = host_matvec(gf16, M, bytes_as_u16(words, HOST_SLICE // 2))
+    torch.cuda.synchronize()
+    check(err == 0, "K8 RS(200,56) GF(2^16) vs plain")
+    check(np.array_equal(bytes_as_u16(out, HOST_SLICE // 2), host),
+          "K8 RS(200,56) GF(2^16) vs host_matvec on a 64 KiB slice")
+    report["rs16_200_56"] = {"kind": kind, "operand": list(m2.shape),
+                             "plan_seconds": plan_s, "equal": True}
+
+    gf = GF256()
+    dense = rng.integers(1, 256, size=(200, 200), dtype=np.uint8)
+    codec = DeviceCodec(device=device)
+    check(codec.route_for(dense) == "mxu", "dense (200,200) GF(2^8) routes mxu")
+    _, _, d2, _ = codec.plan_for(dense)
+    w = rand_words(rng, (200, TW), device)
+    dout = mxu_encode_words_bits(d2, w, 200, 200)
+    derr = max_abs_err(dout, mxu_encode_words_bits_plain(d2, w, 200, 200))
+    dhost = host_matvec(gf, dense,
+                        w[:, :HOST_SLICE // 4].cpu().numpy().view(np.uint8))
+    torch.cuda.synchronize()
+    check(derr == 0, "K8 dense (200,200) GF(2^8) vs plain")
+    check(np.array_equal(
+        dout[:, :HOST_SLICE // 4].cpu().numpy().view(np.uint8), dhost),
+        "K8 dense (200,200) vs host_matvec on a 64 KiB slice")
+    report["dense_200_200_gf256"] = {
+        "xor_cost": codec._xor_cost_for(dense), "equal": True}
+    results["mxu_gf2"]["max_abs_err"] = max(err, derr)
+
+    words16 = rand_words(rng, (10, TW), device)
+    planes = pack_words16(words16)
+    err_p = max_abs_err(planes, pack_words16_plain(words16))
+    back = unpack_words16(planes)
+    err_u = max_abs_err(back, unpack_words16_plain(planes))
+    parity_planes = planes[:4].contiguous()
+    err_u4 = max_abs_err(unpack_words16(parity_planes),
+                         unpack_words16_plain(parity_planes))
+    torch.cuda.synchronize()
+    check(err_p == 0 and err_u == 0 and err_u4 == 0,
+          "K10 pack16/unpack16 vs plain")
+    check(torch.equal(back, words16), "K10 round trip")
+    results["pack_words16"]["max_abs_err"] = err_p
+    results["unpack_words16"]["max_abs_err"] = max(err_u, err_u4)
+    report["k10"] = {"rows": [10, 4], "planes": list(planes.shape),
+                     "equal": True}
+    return report
+
+
+def main_path_gf16(rng, run_path, out: dict) -> dict:
+    """The GF(2^16) paths and the dense GF(2^8) "mxu" path of main_path,
+    each run through ``run_path`` into ``out``; every output checked
+    against the NumPy codec (RS(200,56) and the wide words on a 64 KiB
+    slice of each shard, the rest in full)."""
+    from noise_ec_tpu_torch.codec import ReedSolomon
+    from noise_ec_tpu_torch.gf import GF256
+    from noise_ec_tpu_torch.matrix import generator_matrix, host_matvec
+    from noise_ec_tpu_torch.ops.dispatch import DeviceCodec
+    from noise_ec_tpu_torch.ops.pack import (
+        bytesliced_to_words16,
+        words16_to_bytesliced,
+    )
+
+    obj = rng.integers(0, 256, size=10 * SHARD, dtype=np.uint8).tobytes()
+    wide_obj = rng.integers(0, 256, size=200 * SHARD,
+                            dtype=np.uint8).tobytes()
+    rs = ReedSolomon(10, 4, field="gf65536")
+    rs200 = ReedSolomon(200, 56, field="gf65536")
+    codec16 = DeviceCodec(field="gf65536")
+    gf16 = rs.gf
+    M60 = generator_matrix(gf16, 60, 80, "cauchy")[60:]
+    check(codec16.route_for(rs.G[10:]) == "baked", "GF(2^16) RS(10,4) baked")
+    check(codec16.route_for(M60) == "panel", "GF(2^16) RS(60,20) panel")
+    device = codec16.device
+    w10 = rand_words(rng, (10, TW), device)
+    w60 = rand_words(rng, (60, TW), device)
+    dense = rng.integers(1, 256, size=(200, 200), dtype=np.uint8)
+    dense_in = rng.integers(0, 256, size=(200, SHARD), dtype=np.uint8)
+    codec = DeviceCodec()
+    check(codec.route_for(dense) == "mxu", "dense (200,200) routes mxu")
+    wide_lost = set(WIDE_LOST)
+
+    def codec_path(rsx, blob, lost):
+        shards = rsx.split(blob)
+        enc = rsx.encode(shards)
+        verified = rsx.verify(enc)
+        holes = [None if i in lost else s for i, s in enumerate(enc)]
+        rec = rsx.reconstruct(holes)
+        data = rsx.reconstruct_data(holes)
+        return (shards, enc, verified, holes, rec, data,
+                rsx.join(rec, len(blob)))
+
+    def words16():
+        return (codec16.matmul_words(rs.G[10:], w10),
+                codec16.matmul_words(M60, w60))
+
+    r10, out["rs16_10_4"] = run_path(
+        lambda: codec_path(rs, obj, {0, 5, 11}))
+    r200, out["rs16_200_56"] = run_path(
+        lambda: codec_path(rs200, wide_obj, wide_lost))
+    (i10, i60), out["words16"] = run_path(words16)
+    dense_out, out["mxu_256"] = run_path(
+        lambda: codec.matmul_stripes(dense, dense_in))
+
+    ref = ReedSolomon(10, 4, field="gf65536", backend="numpy")
+    shards, enc, verified, holes, rec, data, joined = r10
+    check(all(np.array_equal(a, b) for a, b in zip(enc, ref.encode(shards))),
+          "GF(2^16) RS(10,4) encode vs numpy backend")
+    check(verified, "GF(2^16) RS(10,4) verify")
+    check(all(np.array_equal(a, b) for a, b in
+              zip(rec, ref.reconstruct(holes))),
+          "GF(2^16) RS(10,4) reconstruct vs numpy backend")
+    check(all(np.array_equal(a, b) for a, b in zip(data[:10], enc)),
+          "GF(2^16) RS(10,4) reconstruct_data")
+    check(joined == obj, "GF(2^16) RS(10,4) join")
+
+    ref200 = ReedSolomon(200, 56, field="gf65536", backend="numpy")
+    shards, enc, verified, holes, rec, data, joined = r200
+    cut = [s[:HOST_SLICE] for s in shards]
+    check(all(np.array_equal(a[:HOST_SLICE], b)
+              for a, b in zip(enc, ref200.encode(cut))),
+          "GF(2^16) RS(200,56) encode vs numpy backend (64 KiB slice)")
+    check(verified, "GF(2^16) RS(200,56) verify")
+    want = ref200.reconstruct(
+        [None if s is None else s[:HOST_SLICE] for s in holes])
+    check(all(np.array_equal(a[:HOST_SLICE], b) for a, b in zip(rec, want)),
+          "GF(2^16) RS(200,56) reconstruct vs numpy backend (64 KiB slice)")
+    check(all(np.array_equal(a, b) for a, b in zip(rec, enc)),
+          "GF(2^16) RS(200,56) reconstruct 28 data + 28 parity")
+    check(all(np.array_equal(a, b) for a, b in zip(data[:200], enc)),
+          "GF(2^16) RS(200,56) reconstruct_data")
+    check(joined == wide_obj, "GF(2^16) RS(200,56) join")
+
+    for name, M, w, got, cols in (("RS(10,4)", rs.G[10:], w10, i10, TW),
+                                  ("RS(60,20)", M60, w60, i60,
+                                   HOST_SLICE // 4)):
+        via = bytesliced_to_words16(
+            codec16.matmul_words_bytesliced(M, words16_to_bytesliced(w)))
+        host = host_matvec(gf16, M, w[:, :cols].cpu().numpy().view("<u2"))
+        check(torch.equal(got, via),
+              f"interleaved GF(2^16) {name} vs the byte-sliced entry")
+        check(np.array_equal(got[:, :cols].cpu().numpy().view("<u2"), host),
+              f"interleaved GF(2^16) {name} vs host_matvec")
+    check(np.array_equal(dense_out[:, :HOST_SLICE], host_matvec(
+        GF256(), dense, dense_in[:, :HOST_SLICE])),
+        "dense (200,200) matmul_stripes vs host_matvec (64 KiB slice)")
+
+    for path in ("rs16_200_56", "mxu_256"):
+        check(out[path]["mxu_gf2"] > 0, f"K8 launched on {path}")
+    # encode, verify, reconstruct (56,200) and reconstruct_data (28,200):
+    # four products, every one past the XOR-network budgets.
+    check(out["rs16_200_56"]["mxu_gf2"] == 4 and sum(
+        out["rs16_200_56"].values()) == 4,
+        "GF(2^16) RS(200,56) ran its four products, encode and reconstruct "
+        "included, on K8 alone")
+    check(out["rs16_10_4"]["fused_encode"] > 0,
+          "K1 launched on GF(2^16) RS(10,4)")
+    for name in ("pack_words16", "unpack_words16", "gf2mm_sparse",
+                 "gf2mm_panel"):
+        check(out["words16"][name] > 0, f"{name} launched on words16")
+    return {"rs16_10_4_object_bytes": len(obj),
+            "rs16_200_56_object_bytes": len(wide_obj),
+            "rs16_200_56_erasures": list(WIDE_LOST),
+            "words16_matrices": ["RS(10,4) parity", "RS(60,20) parity"],
+            "mxu_256_stripe_bytes": SHARD}
+
+
 def phase_main_path(rng) -> dict:
     from noise_ec_tpu_torch.codec import ReedSolomon
     from noise_ec_tpu_torch.matrix import host_matvec, reconstruction_matrix
@@ -475,9 +709,11 @@ def phase_main_path(rng) -> dict:
             check(out[path][name] > 0, f"{name} launched on {path}")
     check(out["rs_200_56"]["fused_encode"] == 0,
           "RS(200,56) runs no fused-kernel launch")
+    gf16_report = main_path_gf16(rng, run_path, out)
     launches = {name: sum(c[name] for c in out.values())
                 for name in out["pipeline"]}
     return {"phase": "main_path", "launches": launches, "by_path": out,
+            **gf16_report,
             "rs_10_4_object_bytes": len(obj), "erasures": [0, 5, 11],
             "batch": len(batch), "rs_4_2_message_bytes": len(small),
             "rs_200_56_object_bytes": len(wide_obj),
@@ -770,6 +1006,151 @@ def phase_panel_times(rng, device, results: dict) -> dict:
     }
 
 
+def int8_bits(words: torch.Tensor) -> torch.Tensor:
+    """Byte-row words (K, TW) as the (8K, 4*TW) int8 0/1 bit operand that
+    K8 builds in shared memory (row 8q + b: bit b of byte row q)."""
+    cols = words.view(torch.uint8)
+    shifts = torch.arange(8, dtype=torch.uint8, device=words.device)
+    bits = (cols[:, None, :] >> shifts[None, :, None]) & 1
+    return bits.reshape(-1, cols.shape[1]).view(torch.int8)
+
+
+def phase_gf16_times(rng, device, results: dict) -> dict:
+    """K8 at RS(200,56) over GF(2^16) and K10 at RS(10,4) over GF(2^16),
+    1 MiB shards, beside their bounds and plain versions; the GF(2^16)
+    codec's numbers."""
+    from noise_ec_tpu_torch.codec import ReedSolomon
+    from noise_ec_tpu_torch.gf import GF65536
+    from noise_ec_tpu_torch.matrix import (
+        generator_matrix,
+        reconstruction_matrix,
+    )
+    from noise_ec_tpu_torch.ops.dispatch import DeviceCodec
+    from noise_ec_tpu_torch.ops.mxu import (
+        mxu_encode_words_bits,
+        mxu_encode_words_bits_plain,
+    )
+    from noise_ec_tpu_torch.ops.pack import (
+        pack_words16,
+        pack_words16_plain,
+        unpack_words16,
+        unpack_words16_plain,
+    )
+
+    timer = Timer(device)
+    codec16 = DeviceCodec(field="gf65536", device=device)
+    _, M = rs16_200_56_parity()
+    _, _, m2, _ = codec16.plan_for(M)
+    words = rand_words(rng, (400, TWB), device)
+    N = 4 * TWB  # byte columns
+    k8_bound = max(
+        (bound(512 * 4 * TWB, 0)[0], "bytes"),
+        (2 * 896 * 3200 * N / INT8_OPS_PER_S * 1e3, "operations"))
+    results["mxu_gf2"].update(
+        ms=timer.median_ms(lambda: mxu_encode_words_bits(m2, words, 112, 400)),
+        plain_ms=timer.median_ms(
+            lambda: mxu_encode_words_bits_plain(m2, words, 112, 400),
+            PLAIN_PANEL_REPS, warmup=False),
+        bound_ms=k8_bound[0], bound_by=k8_bound[1],
+    )
+    # The tensor cores' own int8 product on bits expanded beforehand: the
+    # dot alone, with no unpack, parity or repack (not the same function).
+    bits = int8_bits(words)
+    try:
+        int_mm_ms = timer.median_ms(lambda: torch._int_mm(m2, bits))
+    except RuntimeError as exc:
+        int_mm_ms = f"failed: {exc}"
+    del bits
+
+    groups16 = TW // 16
+    words16 = rand_words(rng, (10, TW), device)
+    planes = pack_words16(words16)
+    parity_planes = planes[:4].contiguous()
+    for name, kernel, plain, nbytes, nops in (
+            ("pack_words16", lambda: pack_words16(words16),
+             lambda: pack_words16_plain(words16), 20 * SHARD,
+             10 * groups16 * TRANSPOSE16_OPS),
+            ("unpack_words16", lambda: unpack_words16(parity_planes),
+             lambda: unpack_words16_plain(parity_planes), 8 * SHARD,
+             4 * groups16 * TRANSPOSE16_OPS)):
+        b_ms, b_by = bound(nbytes, nops)
+        results[name].update(ms=timer.median_ms(kernel),
+                             plain_ms=timer.median_ms(plain),
+                             bound_ms=b_ms, bound_by=b_by)
+
+    # The codec: device-resident byte-sliced words (RS(10,4) on K1 over 20
+    # byte rows, RS(200,56) on K8), the interleaved entry at RS(10,4), and
+    # host arrays end to end.
+    rs10 = ReedSolomon(10, 4, field="gf65536", device=str(device))
+    rs200 = ReedSolomon(200, 56, field="gf65536", device=str(device))
+    w20 = rand_words(rng, (20, TWB), device)
+    bs10_ms = timer.median_ms(
+        lambda: rs10._dev.matmul_words_bytesliced(rs10.G[10:], w20))
+    bs200_ms = timer.median_ms(
+        lambda: rs200._dev.matmul_words_bytesliced(M, words))
+    inter10_ms = timer.median_ms(
+        lambda: rs10._dev.matmul_words(rs10.G[10:], words16))
+
+    def host_p50(fn, reps) -> float:
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    codec_ms = {}
+    for name, rsx, k, lost, reps in (
+            ("rs16_10_4", rs10, 10, {0, 5, 11}, REPS),
+            ("rs16_200_56", rs200, 200, set(WIDE_LOST), WIDE_REPS)):
+        data = [rng.integers(0, 256, size=SHARD, dtype=np.uint8)
+                for _ in range(k)]
+        enc = rsx.encode(data)
+        holes = [None if i in lost else s for i, s in enumerate(enc)]
+        rsx.reconstruct(holes)
+        codec_ms[name] = (host_p50(lambda: rsx.encode(data), reps),
+                          host_p50(lambda: rsx.reconstruct(holes), reps))
+
+    # Planning a new recovery matrix: 56 other erasures (the other half of
+    # each run), on a codec that has not seen it.
+    G = generator_matrix(GF65536(), 200, 256, "cauchy")
+    other = [i + 1 for i in WIDE_LOST]
+    present = [i for i in range(256) if i not in set(other)][:200]
+    R = reconstruction_matrix(rs200.gf, G, present, other)
+    fresh = DeviceCodec(field="gf65536", device=device)
+    t0 = time.monotonic()
+    fresh._bits_for(R)
+    expand_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    check(fresh.route_for(R) == "mxu", "new (56,200) recovery routes mxu")
+    fresh.plan_for(R)
+    torch.cuda.synchronize()
+    plan_s = expand_s + time.monotonic() - t0
+
+    return {
+        "phase": "gf16_times", "reps": REPS, "wide_reps": WIDE_REPS,
+        "mxu_gf2_int_mm_ms": int_mm_ms,
+        "mxu_gf2_int_mm_note": ("torch._int_mm(M2, bits) on bits expanded "
+                                "beforehand: the dot alone"),
+        "rs16_10_4_matmul_words_bytesliced_ms": bs10_ms,
+        "rs16_10_4_matmul_words_bytesliced_gbps": 10 * SHARD / bs10_ms / 1e6,
+        "rs16_200_56_matmul_words_bytesliced_ms": bs200_ms,
+        "rs16_200_56_matmul_words_bytesliced_gbps":
+            200 * SHARD / bs200_ms / 1e6,
+        "rs16_10_4_matmul_words_interleaved_ms": inter10_ms,
+        "rs16_10_4_encode_ms": codec_ms["rs16_10_4"][0],
+        "rs16_10_4_encode_gbps": 10 * SHARD / codec_ms["rs16_10_4"][0] / 1e6,
+        "rs16_10_4_reconstruct_3_erasures_p50_ms": codec_ms["rs16_10_4"][1],
+        "rs16_200_56_encode_ms": codec_ms["rs16_200_56"][0],
+        "rs16_200_56_encode_gbps":
+            200 * SHARD / codec_ms["rs16_200_56"][0] / 1e6,
+        "rs16_200_56_reconstruct_56_erasures_p50_ms":
+            codec_ms["rs16_200_56"][1],
+        "rs16_recovery_expand_seconds": expand_s,
+        "rs16_recovery_plan_seconds": plan_s,
+    }
+
+
 def phase_panel_sweep(rng, device) -> dict:
     """The panel matmul under each panel shape and each block size that
     fits, on each matrix of :func:`panel_matrices`: the evidence for the
@@ -846,6 +1227,12 @@ def main() -> int:
                                "noise_ec_tpu/ops/pallas_pack.py:374"),
         "unpack_lanes_blocked": ("noise_ec_tpu_torch/csrc/pack.cu",
                                  "noise_ec_tpu/ops/pallas_pack.py:394"),
+        "mxu_gf2": ("noise_ec_tpu_torch/csrc/mxu.cu",
+                    "noise_ec_tpu/ops/mxu_gf2.py:55"),
+        "pack_words16": ("noise_ec_tpu_torch/csrc/pack.cu",
+                         "noise_ec_tpu/ops/pallas_pack.py:448"),
+        "unpack_words16": ("noise_ec_tpu_torch/csrc/pack.cu",
+                           "noise_ec_tpu/ops/pallas_pack.py:453"),
     }
     results = {
         name: {"name": name, "route": "cuda", "source": src,
@@ -855,10 +1242,12 @@ def main() -> int:
     emit(phase_build())
     emit(phase_kernels(rng, device, results))
     emit(phase_panel_kernels(rng, device, results))
+    emit(phase_gf16_kernels(rng, device, results))
     main_path = phase_main_path(rng)
     emit(main_path)
     emit(phase_times(rng, device, results))
     emit(phase_panel_times(rng, device, results))
+    emit(phase_gf16_times(rng, device, results))
     if args.panel_sweep:
         emit(phase_panel_sweep(rng, device))
     kernels = []

@@ -31,12 +31,16 @@ from typing import Optional, Sequence, Union
 
 import numpy as np
 
-from noise_ec_tpu_torch.gf.field import GF, GF256
+from noise_ec_tpu_torch.gf.field import GF, GF256, GF65536
 from noise_ec_tpu_torch.matrix.generators import generator_matrix
 from noise_ec_tpu_torch.matrix.hostmath import host_matvec
 from noise_ec_tpu_torch.matrix.linalg import reconstruction_matrix
 
 Buffer = Union[bytes, bytearray, memoryview, np.ndarray]
+
+# GF(2^16) holds up to 65536 shards; its symbols are little-endian u16
+# pairs of shard bytes.
+_FIELDS = {"gf256": GF256, "gf65536": GF65536}
 
 # Invertible-subset search cap for non-MDS (par1) reconstruction. The
 # default constructions never search (Cauchy submatrices are always
@@ -77,13 +81,9 @@ class ReedSolomon:
             raise ValueError("data_shards must be >= 1")
         if parity_shards < 0:
             raise ValueError("parity_shards must be >= 0")
-        if field == "gf65536":
-            raise NotImplementedError(
-                "GF(2^16) is not ported yet (ROADMAP queue 1, item 4)"
-            )
-        if field != "gf256":
+        if field not in _FIELDS:
             raise ValueError(f"unknown field {field!r}")
-        self.gf: GF = GF256()
+        self.gf: GF = _FIELDS[field]()
         self.k = data_shards
         self.r = parity_shards
         self.n = data_shards + parity_shards

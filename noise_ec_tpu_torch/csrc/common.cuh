@@ -1,5 +1,5 @@
-// Device helpers shared by the port's kernels: the 8x8 bit transpose that
-// turns eight words into eight bit-planes (and back), and the interpreter
+// Device helpers shared by the port's kernels: the 8x8 and 16x16 bit
+// transposes that turn words into bit-planes (and back), and the interpreter
 // that runs an XorProgram (noise_ec_tpu_torch/ops/network.py) over values
 // held in shared-memory slots.
 //
@@ -13,12 +13,13 @@
 
 namespace noise_ec {
 
-// One delta-swap round over the pairs (i, i + d), i & d == 0. The pairs are
-// disjoint, so updating in place equals the simultaneous update of the
-// reference's transpose_windows (ops/pallas_pack.py).
+// One delta-swap round over the pairs (i, i + d), i & d == 0, of N words.
+// The pairs are disjoint, so updating in place equals the simultaneous
+// update of the reference's _delta_swap (ops/pallas_pack.py).
+template <int N>
 __device__ __forceinline__ void swap_round(uint32_t* w, int d, uint32_t mask) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < N; ++i) {
     if ((i & d) == 0) {
       uint32_t t = ((w[i] >> d) ^ w[i + d]) & mask;
       w[i] ^= t << d;
@@ -30,9 +31,20 @@ __device__ __forceinline__ void swap_round(uint32_t* w, int d, uint32_t mask) {
 // 8x8 bit transpose across eight words: out[i] bit (8b + j) == in[j] bit
 // (8b + i). An involution, so pack and unpack share it.
 __device__ __forceinline__ void transpose8(uint32_t* w) {
-  swap_round(w, 1, 0x55555555u);
-  swap_round(w, 2, 0x33333333u);
-  swap_round(w, 4, 0x0F0F0F0Fu);
+  swap_round<8>(w, 1, 0x55555555u);
+  swap_round<8>(w, 2, 0x33333333u);
+  swap_round<8>(w, 4, 0x0F0F0F0Fu);
+}
+
+// 16x16 bit transpose across sixteen words, one per 16-bit half h:
+// out[i] bit (16h + j) == in[j] bit (16h + i) (the reference's _ROUNDS16:
+// transpose8's rounds and d = 8 with mask 0x00FF00FF, whose exchanged bits
+// never cross a half). An involution.
+__device__ __forceinline__ void transpose16(uint32_t* w) {
+  swap_round<16>(w, 1, 0x55555555u);
+  swap_round<16>(w, 2, 0x33333333u);
+  swap_round<16>(w, 4, 0x0F0F0F0Fu);
+  swap_round<16>(w, 8, 0x00FF00FFu);
 }
 
 // Operand of an XorProgram: a shared-memory slot (code >= 0, laid out

@@ -34,14 +34,16 @@ def constant_bitmatrix(gf: GF, c: int) -> np.ndarray:
 
 
 def expand_generator_bits(gf: GF, G: np.ndarray) -> np.ndarray:
-    """Expand an (r, k) GF generator matrix to its (m*r, m*k) GF(2) form."""
+    """Expand an (r, k) GF generator matrix to its (m*r, m*k) GF(2) form.
+
+    Block (i, j) is :func:`constant_bitmatrix` of ``G[i, j]``, built for
+    every entry at once: one broadcast ``gf.mul`` gives each symbol's m
+    columns c * 2^b, and shifts pull out their bits."""
     G = np.asarray(G)
     r, k = G.shape
     m = gf.degree
-    out = np.zeros((m * r, m * k), dtype=np.uint8)
-    for i in range(r):
-        for j in range(k):
-            out[i * m : (i + 1) * m, j * m : (j + 1) * m] = constant_bitmatrix(
-                gf, int(G[i, j])
-            )
-    return out
+    cols = gf.mul(G[:, :, None], (1 << np.arange(m))[None, None, :])
+    bits = (cols[..., None].astype(np.uint32)
+            >> np.arange(m, dtype=np.uint32)) & 1  # [i, j, col b, bit a]
+    return np.ascontiguousarray(
+        bits.transpose(0, 3, 1, 2).reshape(m * r, m * k), dtype=np.uint8)

@@ -29,7 +29,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("pack", "gf2mm", "fused", "panel")
+SOURCES = ("pack", "gf2mm", "fused", "panel", "mxu")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -41,11 +41,14 @@ _p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "ec_pack_lanes": [_p, _p, _ll, _ll, _i, _p],
     "ec_unpack_lanes": [_p, _p, _ll, _ll, _i, _p],
+    "ec_pack_words16": [_p, _p, _ll, _ll, _ll, _p],
+    "ec_unpack_words16": [_p, _p, _ll, _ll, _ll, _p],
     "ec_gf2mm": [_p, _p, _i, _ll, _i, _i, _p, _i, _p, _p, _i, _i, _p],
     "ec_fused": [_p, _p, _i, _i, _i, _ll, _i, _p, _i, _p, _p, _p, _i, _i,
                  _p],
     "ec_panel": [_p, _p, _i, _ll, _i, _i, _i, _i, _i, _i, _i, _i, _p, _p, _p,
                  _p, _p, _i, _i, _p],
+    "ec_mxu": [_p, _p, _p, _i, _i, _i, _ll, _p],
 }
 
 _lock = threading.Lock()

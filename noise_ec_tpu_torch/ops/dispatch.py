@@ -1,24 +1,35 @@
 """Geometry-cached device codec: the bridge from GF matrices to the kernels.
 
-Port of ``noise_ec_tpu.ops.dispatch.DeviceCodec`` for GF(2^8) on the
-"baked" and "panel" routes. One primitive carries both reference hot
-loops: encode is ``parity_rows @ data`` (main.go:262), reconstruct is
+Port of ``noise_ec_tpu.ops.dispatch.DeviceCodec`` for GF(2^8) and
+GF(2^16). One primitive carries both reference hot loops: encode is
+``parity_rows @ data`` (main.go:262), reconstruct is
 ``inverted_submatrix_rows @ survivors`` (main.go:77). Per matrix the codec
-caches the bit network's plan, with the program uploaded to the card once:
-on the baked route the fused kernel K1 (ops/fused.py) when its
-shared-memory slots fit, else the K2 -> K4 -> K3 pipeline (ops/pack.py,
-ops/gf2mm.py); on the panel route (wide codes, :meth:`DeviceCodec.route_for`)
-the row-blocked pack K6 -> the block-panel matmul K7 (ops/panel.py) ->
-the row-blocked unpack.
+caches its plan, with the operand uploaded to the card once, on one of
+three routes (:meth:`DeviceCodec.route_for`):
+
+- "baked": the fused kernel K1 (ops/fused.py) when its shared-memory slots
+  fit, else the K2 -> K4 -> K3 pipeline (ops/pack.py, ops/gf2mm.py);
+- "panel" (wide codes): the row-blocked pack K6 -> the block-panel matmul
+  K7 (ops/panel.py) -> the row-blocked unpack;
+- "mxu" (past every XOR-network budget): the dense int8 product K8
+  (ops/mxu.py).
+
+GF(2^16) runs byte-sliced: each u16 symbol row splits into adjacent lo/hi
+byte rows, and the m=8 routes above run over 2k byte rows with the
+matrix's unpermuted (16r, 16k) bit expansion (flat plane index
+16j + b == (2j + b//8)*8 + b%8). The interleaved-u16 words entry
+(:meth:`DeviceCodec.matmul_words` on a GF(2^16) codec) runs the same bits
+over 16 planes a shard instead: K10 pack -> K4 or K7 -> K10 unpack.
 
 The codec runs on ``device`` ("cuda" unless the caller asks for "cpu").
 On the CPU every wrapper takes its kernel's plain PyTorch version; on the
-card it launches the kernel or raises. Nothing falls back: an unported
-route raises NotImplementedError, a build or launch error raises.
+card it launches the kernel or raises. Nothing falls back: a build or
+launch error raises, and so does the one route the reference has no kernel
+for either, an "mxu" matrix on the interleaved GF(2^16) words entry.
 
 Left out for now (ROADMAP queue 1): the codec breaker and its prober, the
-``DeviceGate`` admission queue, ``obs/device.py`` telemetry, the "mxu"
-route (with GF(2^16), the only path that reaches it), and the mesh tier.
+``DeviceGate`` admission queue, ``obs/device.py`` telemetry, the FEC
+syndrome and decode1 entries, and the mesh tier.
 """
 
 from __future__ import annotations
@@ -31,23 +42,30 @@ import torch
 import torch.nn.functional as F
 
 from noise_ec_tpu_torch.gf.bitmatrix import expand_generator_bits
-from noise_ec_tpu_torch.gf.field import GF, GF256
+from noise_ec_tpu_torch.gf.field import GF, GF256, GF65536
 from noise_ec_tpu_torch.ops.fused import fused_encode_words, fused_plan
 from noise_ec_tpu_torch.ops.gf2mm import (
     bits_to_rows,
     gf2_matmul_sparse,
     sparse_plan,
 )
+from noise_ec_tpu_torch.ops.mxu import MXU_TILE_WORDS, mxu_encode_words_bits
 from noise_ec_tpu_torch.ops.network import BLOCK_SIZES, SMEM_BYTES
 from noise_ec_tpu_torch.ops.pack import (
     lane_quantum,
     lane_tl,
+    pack_u16_bytesliced,
+    pack_words16,
     pack_words_lanes,
     pack_words_lanes_blocked,
+    unpack_u16_bytesliced,
+    unpack_words16,
     unpack_words_lanes,
     unpack_words_lanes_blocked,
 )
 from noise_ec_tpu_torch.ops.panel import gf2_matmul_panel_chain, panel_plan
+
+_FIELDS = {"gf256": GF256, "gf65536": GF65536}
 
 # Whole-network factoring is super-linear in the network's terms and runs
 # on the host once per matrix (RS(50,20), ~32k raw XORs, takes seconds in
@@ -56,33 +74,41 @@ from noise_ec_tpu_torch.ops.panel import gf2_matmul_panel_chain, panel_plan
 # does not depend on the card.
 _BAKED_XOR_BUDGET = 60_000
 
-# The fused kernel parks all 8k input planes of a thread in shared memory
+# The fused kernel parks all 8K input planes of a thread in shared memory
 # before its network runs, so even its smallest block (one warp) needs
-# 8 * k * 32 * 4 B <= 227 KB: k <= 227. Output rows take no slots, and the
-# pipeline's kernels hold no whole rows at all. The reference's bound (96,
-# on max(k, r)) models its TPU pack stage's VMEM tiles instead.
+# 8 * K * 32 * 4 B <= 227 KB over K byte rows: K <= 227 (k for GF(2^8), 2k
+# for GF(2^16)). Output rows take no slots, and the pipeline's kernels hold
+# no whole rows at all. The reference's bound (96, on max(k, r) byte rows)
+# models its TPU pack stage's VMEM tiles instead.
 _BAKED_MAX_ROWS = SMEM_BYTES // (8 * BLOCK_SIZES[-1] * 4)
 
 # Past this raw-XOR budget the reference leaves the XOR-network kernels for
-# the dense MXU product (pallas_gf2mm.PANEL_XOR_BUDGET). No GF(2^8) matrix
-# of k + r <= 256 shards reaches it: RS(128,128)'s parity network, the
-# widest, has 533,504.
+# the dense MXU product (pallas_gf2mm.PANEL_XOR_BUDGET), and so does the
+# port, for K8. No RS parity matrix with k + r <= 256 reaches it over
+# GF(2^8) (RS(128,128)'s, the widest, has 533,504 raw XORs); a denser
+# GF(2^8) matrix can, and so do GF(2^16)'s wide codes, from RS(200,56) on.
 PANEL_XOR_BUDGET = 600_000
 
-_MXU_UNPORTED = (
-    "matrix exceeds the panel-tier XOR budget: the MXU route is not ported "
-    "yet (ROADMAP queue 1, item 4, with GF(2^16), its only other path)"
-)
-
-# Pad-to multiple of the words entries: the lane-pack grouping unit at
-# TL = 128 (8*8*128 words, 32 KiB per GF(2^8) shard), as in the reference.
+# Pad-to multiples of the words entries: the lane-pack grouping unit at
+# TL = 128 (8*8*128 words, 32 KiB per GF(2^8) shard), and the reference's
+# interleaved-u16 unit (64 KiB per GF(2^16) shard), as in the reference.
+# K8 pads only to its own tile.
 WORD_QUANTUM = lane_quantum(8)
+WORD_QUANTUM16 = lane_quantum(16)
 
 _TIERS = (None, "fused", "pipeline")
 
+# Expansions kept per codec: a GF(2^16) RS(200,56) parity matrix's is
+# 2.9 MB; what each plan needs is cached beside it.
+_BITS_CACHE = 16
 
-def pad_words(TW: int) -> int:
-    return -(-TW // WORD_QUANTUM) * WORD_QUANTUM
+
+def pad_words(TW: int, quantum: int = WORD_QUANTUM) -> int:
+    return -(-TW // quantum) * quantum
+
+
+def _quantum(kind: str) -> int:
+    return MXU_TILE_WORDS if kind == "mxu" else WORD_QUANTUM
 
 
 class StagingPool:
@@ -118,14 +144,11 @@ class StagingPool:
 
 
 class DeviceCodec:
-    """Runs GF(2^8) matrix x stripes products on ``device`` (module doc)."""
+    """Runs GF(2^8) or GF(2^16) matrix x stripes products on ``device``
+    (module doc)."""
 
     def __init__(self, field: str = "gf256", device: str = "cuda"):
-        if field == "gf65536":
-            raise NotImplementedError(
-                "GF(2^16) is not ported yet (ROADMAP queue 1, item 4)"
-            )
-        if field != "gf256":
+        if field not in _FIELDS:
             raise ValueError(f"unknown field {field!r}")
         self.device = torch.device(device)
         if self.device.type == "cuda":
@@ -139,7 +162,11 @@ class DeviceCodec:
         elif self.device.type != "cpu":
             raise ValueError(f"unsupported device {device!r}")
         self.field = field
-        self.gf: GF = GF256()
+        self.gf: GF = _FIELDS[field]()
+        # Byte rows a symbol row spans: the byte-sliced GF(2^16) route runs
+        # the m=8 kernels over two per shard.
+        self.sym_bytes = self.gf.degree // 8
+        self._bits_cache: dict[bytes, np.ndarray] = {}
         self._rows_cache: dict[bytes, tuple] = {}
         self._cost_cache: dict[bytes, int] = {}
         self._plan_cache: dict[tuple, tuple] = {}
@@ -148,17 +175,34 @@ class DeviceCodec:
     def _key(self, M: np.ndarray) -> bytes:
         return M.tobytes() + M.shape[1].to_bytes(4, "little")
 
+    def _bits_for(self, M: np.ndarray) -> np.ndarray:
+        """M's (m*r, m*k) GF(2) expansion, cached: the one expansion the
+        XOR cost, the network's terms and K8's operand all derive from."""
+        M = np.ascontiguousarray(np.asarray(M, dtype=self.gf.dtype))
+        key = self._key(M)
+        hit = self._bits_cache.get(key)
+        if hit is None:
+            hit = expand_generator_bits(self.gf, M)
+            if len(self._bits_cache) >= _BITS_CACHE:
+                self._bits_cache.clear()
+            self._bits_cache[key] = hit
+        return hit
+
     def bits_rows_for(self, M: np.ndarray) -> tuple:
-        """(r, k) GF matrix -> hashable per-row term tuples of its (8r, 8k)
-        bit matrix (cached). A network past the panel tier's XOR budget
-        never reaches factoring."""
+        """(r, k) GF matrix -> hashable per-row term tuples of its (m*r,
+        m*k) bit matrix (cached). A network past the panel tier's XOR
+        budget never reaches factoring: the stripes and byte-rows entries
+        run it on K8 instead."""
         if self._xor_cost_for(M) > PANEL_XOR_BUDGET:
-            raise NotImplementedError(_MXU_UNPORTED)
+            raise NotImplementedError(
+                "matrix exceeds the panel-tier XOR budget: its route is "
+                "'mxu' (K8), which takes no XOR network"
+            )
         M = np.ascontiguousarray(np.asarray(M, dtype=self.gf.dtype))
         key = self._key(M)
         hit = self._rows_cache.get(key)
         if hit is None:
-            hit = bits_to_rows(expand_generator_bits(self.gf, M))
+            hit = bits_to_rows(self._bits_for(M))
             if len(self._rows_cache) > 4096:
                 self._rows_cache.clear()
             self._rows_cache[key] = hit
@@ -171,7 +215,7 @@ class DeviceCodec:
         key = self._key(M)
         hit = self._cost_cache.get(key)
         if hit is None:
-            bits = expand_generator_bits(self.gf, M)
+            bits = self._bits_for(M)
             hit = int(np.count_nonzero(bits)) - bits.shape[0]
             if len(self._cost_cache) > 4096:
                 self._cost_cache.clear()
@@ -181,20 +225,21 @@ class DeviceCodec:
     def route_for(self, M: np.ndarray) -> str:
         """Which kernel family runs this matrix: "baked" (K1, or K2 -> K4
         -> K3), "panel" (wide geometries: K6 -> K7) or "mxu" (past every
-        XOR-network budget) — the reference's three-way answer, with the
-        port's thresholds (module constants)."""
-        k = np.asarray(M).shape[1]
+        XOR-network budget: K8) — the reference's three-way answer, with
+        the port's thresholds (module constants). The row bound counts
+        input byte rows: k for GF(2^8), 2k for GF(2^16)."""
+        rows = self.sym_bytes * np.asarray(M).shape[1]
         cost = self._xor_cost_for(M)
         if cost > PANEL_XOR_BUDGET:
             return "mxu"
-        if k > _BAKED_MAX_ROWS or cost > _BAKED_XOR_BUDGET:
+        if rows > _BAKED_MAX_ROWS or cost > _BAKED_XOR_BUDGET:
             return "panel"
         return "baked"
 
     def plan_for(self, M: np.ndarray, tier: Optional[str] = None) -> tuple:
-        """(kind, threads, program on the codec's device, G) for ``M``,
-        cached per matrix: G is the number of launches the product's K axis
-        is split into.
+        """(kind, threads, operand on the codec's device, G) for ``M``,
+        cached per matrix, over C = 8 * (input byte rows) bit planes: G is
+        the number of launches the product's K axis is split into.
 
         On the baked route, ``tier`` None takes the planner's choice:
         "fused" when K1's slots fit (ops/fused.py), else "pipeline"; G is
@@ -202,37 +247,42 @@ class DeviceCodec:
         plan override does; forcing "fused" on a matrix K1 cannot hold
         raises. A panel-routed matrix plans kind "panel" with a
         :class:`~noise_ec_tpu_torch.ops.network.PanelProgram` and the
-        planner's G (ops/panel.py :func:`panel_plan`), and takes no tier.
-        The "mxu" route raises NotImplementedError."""
+        planner's G (ops/panel.py :func:`panel_plan`); an "mxu" matrix
+        plans kind "mxu" with K8's int8 bit matrix (threads None, G 1).
+        Neither takes a tier."""
         if tier not in _TIERS:
             raise ValueError(f"unknown tier {tier!r}")
         route = self.route_for(M)
-        if route == "mxu":
-            raise NotImplementedError(_MXU_UNPORTED)
-        if route == "panel" and tier is not None:
+        if route != "baked" and tier is not None:
             raise ValueError(
                 f"tier {tier!r} forces a baked-route kernel; this matrix "
-                "routes 'panel'"
+                f"routes {route!r}"
             )
         M = np.ascontiguousarray(np.asarray(M, dtype=self.gf.dtype))
         key = (self._key(M), tier)
         hit = self._plan_cache.get(key)
         if hit is None:
-            bits_rows = self.bits_rows_for(M)
-            C = 8 * M.shape[1]
-            if route == "panel":
-                threads, prog, G = panel_plan(bits_rows, C)
-                hit = ("panel", threads, prog, G)
+            if route == "mxu":
+                hit = ("mxu", None,
+                       torch.from_numpy(self._bits_for(M).view(np.int8)), 1)
             else:
-                plan = fused_plan(bits_rows, C) if tier != "pipeline" else None
-                if plan is not None:
-                    kind = "fused"
-                elif tier == "fused":
-                    raise ValueError("no fused-kernel plan fits this matrix")
+                bits_rows = self.bits_rows_for(M)
+                C = 8 * self.sym_bytes * M.shape[1]
+                if route == "panel":
+                    threads, prog, G = panel_plan(bits_rows, C)
+                    hit = ("panel", threads, prog, G)
                 else:
-                    kind = "pipeline"
-                    plan = sparse_plan(bits_rows, C)
-                hit = (kind,) + tuple(plan) + (1,)
+                    plan = (fused_plan(bits_rows, C) if tier != "pipeline"
+                            else None)
+                    if plan is not None:
+                        kind = "fused"
+                    elif tier == "fused":
+                        raise ValueError(
+                            "no fused-kernel plan fits this matrix")
+                    else:
+                        kind = "pipeline"
+                        plan = sparse_plan(bits_rows, C)
+                    hit = (kind,) + tuple(plan) + (1,)
             hit = hit[:2] + (hit[2].to(self.device), hit[3])
             if len(self._plan_cache) > 1024:
                 self._plan_cache.clear()
@@ -241,64 +291,131 @@ class DeviceCodec:
 
     # -- words entries (device-resident) ----------------------------------
 
-    def matmul_words(self, M: np.ndarray, words: torch.Tensor, *,
-                     tier: Optional[str] = None) -> torch.Tensor:
-        """(k, TW) int32 words on the codec's device -> (r, TW) int32.
-
-        The words ARE the shard bytes (little-endian int32 view, 4 symbols
-        a word). Any TW is accepted: it is zero-padded on the device to
-        :data:`WORD_QUANTUM` and the product sliced back (symbols are
-        positionwise, so padding is inert)."""
-        return self.matmul_words_batch(M, words[None], tier=tier)[0]
-
-    def matmul_words_batch(self, M: np.ndarray, words: torch.Tensor, *,
-                           tier: Optional[str] = None) -> torch.Tensor:
-        """(B, k, TW) int32 words -> (B, r, TW): one launch per kernel for
-        the whole batch (the kernels take the batch as a grid axis)."""
-        M = np.asarray(M)
-        r, k = M.shape
+    def _check_words(self, words: torch.Tensor, rows: int) -> None:
         if (words.dtype != torch.int32 or words.dim() != 3
-                or words.shape[1] != k):
+                or words.shape[1] != rows):
             raise ValueError(
-                f"expected int32 (B, {k}, TW) words, got {words.dtype} "
+                f"expected int32 (B, {rows}, TW) words, got {words.dtype} "
                 f"{tuple(words.shape)}"
             )
         if words.device != self.device:
             raise ValueError(
                 f"words on {words.device}, codec on {self.device}"
             )
+
+    def matmul_words(self, M: np.ndarray, words: torch.Tensor, *,
+                     tier: Optional[str] = None) -> torch.Tensor:
+        """(k, TW) int32 words on the codec's device -> (r, TW) int32.
+
+        The words ARE the shard bytes (little-endian int32 view: 4 GF(2^8)
+        or 2 GF(2^16) symbols a word). Any TW is accepted: it is
+        zero-padded on the device to the route's quantum and the product
+        sliced back (symbols are positionwise, so padding is inert)."""
+        return self.matmul_words_batch(M, words[None], tier=tier)[0]
+
+    def matmul_words_batch(self, M: np.ndarray, words: torch.Tensor, *,
+                           tier: Optional[str] = None) -> torch.Tensor:
+        """(B, k, TW) int32 words -> (B, r, TW): one launch per kernel for
+        the whole batch (the kernels take the batch as a grid axis).
+
+        On a GF(2^16) codec the words hold interleaved u16 symbols and run
+        K10 -> K4 (baked) or K7 (panel) -> K10; an "mxu" matrix raises
+        NotImplementedError there, as in the reference: K8 takes byte
+        rows (:meth:`matmul_words_bytesliced`)."""
+        M = np.asarray(M)
+        self._check_words(words, M.shape[1])
+        if self.sym_bytes == 1:
+            return self._byte_rows(M, words, tier)
+        return self._words16(M, words, tier)
+
+    def matmul_words_bytesliced(self, M: np.ndarray,
+                                words: torch.Tensor) -> torch.Tensor:
+        """GF(2^16) only: (2k, TW) int32 words over byte rows (shard j's lo
+        bytes at row 2j, its hi bytes at 2j+1: the device-resident form of
+        the byte-sliced route, ``words16_to_bytesliced``) -> (2r, TW), on
+        whichever route the matrix takes."""
+        if self.sym_bytes != 2:
+            raise ValueError("matmul_words_bytesliced is gf65536-only")
+        M = np.asarray(M)
+        if words.dim() != 2:
+            raise ValueError(f"expected (2k, TW) words, got "
+                             f"{tuple(words.shape)}")
+        self._check_words(words[None], 2 * M.shape[1])
+        return self._byte_rows(M, words[None], None)[0]
+
+    def _byte_rows(self, M: np.ndarray, words: torch.Tensor,
+                   tier: Optional[str]) -> torch.Tensor:
+        """(B, K, TW) int32 words over K = sym_bytes * k byte rows -> (B,
+        R, TW), R = sym_bytes * r, through M's plan."""
         kind, threads, prog, G = self.plan_for(M, tier)
-        B, _, TW = words.shape
-        TWp = pad_words(TW)
+        R = self.sym_bytes * M.shape[0]
+        B, K, TW = words.shape
+        TWp = pad_words(TW, _quantum(kind))
         if TWp != TW:
             words = F.pad(words, (0, TWp - TW))
         words = words.contiguous()
-        tl = lane_tl(TWp)
-        if kind == "fused":
-            out = fused_encode_words(prog, words, r, threads, tl)
+        if kind == "mxu":
+            out = mxu_encode_words_bits(prog, words, R, K)
+        elif kind == "fused":
+            out = fused_encode_words(prog, words, R, threads, lane_tl(TWp))
         elif kind == "panel":
             # Pack and unpack share the blocked TL by construction.
             W8 = TWp // 64
-            planes = pack_words_lanes_blocked(words.reshape(B * k, TWp))
+            planes = pack_words_lanes_blocked(words.reshape(B * K, TWp))
             out = gf2_matmul_panel_chain(
-                prog, planes.reshape(B, 8 * k, 8, W8), threads, G)
-            out = unpack_words_lanes_blocked(out.reshape(B * r, 8, 8, W8))
-            out = out.reshape(B, r, TWp)
+                prog, planes.reshape(B, 8 * K, 8, W8), threads, G)
+            out = unpack_words_lanes_blocked(out.reshape(B * R, 8, 8, W8))
+            out = out.reshape(B, R, TWp)
         else:
             W8 = TWp // 64
-            planes = pack_words_lanes(words.reshape(B * k, TWp), tl)
-            out = gf2_matmul_sparse(prog, planes.reshape(B, 8 * k, 8, W8),
+            tl = lane_tl(TWp)
+            planes = pack_words_lanes(words.reshape(B * K, TWp), tl)
+            out = gf2_matmul_sparse(prog, planes.reshape(B, 8 * K, 8, W8),
                                     threads)
-            out = unpack_words_lanes(out.reshape(B * r, 8, 8, W8), tl)
-            out = out.reshape(B, r, TWp)
+            out = unpack_words_lanes(out.reshape(B * R, 8, 8, W8), tl)
+            out = out.reshape(B, R, TWp)
+        return out[:, :, :TW] if TWp != TW else out
+
+    def _words16(self, M: np.ndarray, words: torch.Tensor,
+                 tier: Optional[str]) -> torch.Tensor:
+        """Interleaved-u16 (B, k, TW) words -> (B, r, TW) over 16 planes a
+        shard: the (16r, 16k) network on K4 (baked) or K7 (panel)."""
+        route = self.route_for(M)
+        if route == "mxu":
+            raise NotImplementedError(
+                "over-budget GF(2^16) matrices run K8 on the byte-sliced "
+                "entries (matmul_words_bytesliced / matmul_stripes), not "
+                "the interleaved words entry"
+            )
+        if tier == "fused":
+            raise ValueError(
+                "the interleaved GF(2^16) entry runs K10 -> K4 -> K10 on "
+                "the baked route; tier 'fused' is a byte-rows kernel"
+            )
+        kind, threads, prog, G = self.plan_for(
+            M, "pipeline" if route == "baked" else None)
+        r, k = M.shape
+        B, _, TW = words.shape
+        TWp = pad_words(TW, WORD_QUANTUM16)
+        if TWp != TW:
+            words = F.pad(words, (0, TWp - TW))
+        W = TWp // 16
+        planes = pack_words16(words.contiguous().reshape(B * k, TWp))
+        planes = planes.reshape(B, 16 * k, 8, W // 8)
+        if kind == "panel":
+            out = gf2_matmul_panel_chain(prog, planes, threads, G)
+        else:
+            out = gf2_matmul_sparse(prog, planes, threads)
+        out = unpack_words16(out.reshape(B * r, 16, W)).reshape(B, r, TWp)
         return out[:, :, :TW] if TWp != TW else out
 
     # -- stripes entries (host arrays) -------------------------------------
 
     def matmul_stripes(self, M: np.ndarray, D, *,
                        tier: Optional[str] = None) -> np.ndarray:
-        """(r, k) GF matrix x (k, S) uint8 stripes -> (r, S), computed on
-        the codec's device and returned as a host array."""
+        """(r, k) GF matrix x (k, S) symbol stripes (uint8 for GF(2^8),
+        uint16 for GF(2^16)) -> (r, S), computed on the codec's device and
+        returned as a host array."""
         M = np.asarray(M)
         D = np.asarray(D, dtype=self.gf.dtype)
         if D.shape[0] != M.shape[1]:
@@ -329,19 +446,26 @@ class DeviceCodec:
 
     def _stripes(self, M: np.ndarray, Ds: list,
                  tier: Optional[str]) -> list:
-        self.plan_for(M, tier)  # an unported route raises before staging
+        kind = self.plan_for(M, tier)[0]
         B = len(Ds)
         k, S = Ds[0].shape
-        TWp = pad_words(-(-S // 4))
-        buf = self._pool.acquire(B * k, 4 * TWp)
+        K = self.sym_bytes * k  # byte rows a member, S bytes each
+        TWp = pad_words(-(-S // 4), _quantum(kind))
+        buf = self._pool.acquire(B * K, 4 * TWp)
         host = buf.numpy()
         for b, D in enumerate(Ds):
-            host[b * k:(b + 1) * k, :S] = D
-        words = buf.view(torch.int32).reshape(B, k, TWp)
+            rows = host[b * K:(b + 1) * K]
+            if self.sym_bytes == 2:
+                pack_u16_bytesliced(D, out=rows)
+            else:
+                rows[:, :S] = D
+        words = buf.view(torch.int32).reshape(B, K, TWp)
         words = words.to(self.device, non_blocking=True)
-        out = self.matmul_words_batch(M, words, tier=tier).cpu()
+        out = self._byte_rows(M, words, tier).cpu()
         # The product is on the host, so the copy out of the staging page
         # has finished: the page may go to the next dispatch.
         self._pool.release(buf)
-        res = out.numpy().view(np.uint8)  # (B, r, 4 * TWp)
+        res = out.numpy().view(np.uint8)  # (B, R, 4 * TWp) byte rows
+        if self.sym_bytes == 2:
+            return [unpack_u16_bytesliced(res[b, :, :S]) for b in range(B)]
         return [np.ascontiguousarray(res[b, :, :S]) for b in range(B)]

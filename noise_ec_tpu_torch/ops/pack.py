@@ -20,6 +20,14 @@ variant (``_pack_lanes_blocked_call`` / ``_unpack_lanes_blocked_call``,
 K6): the same kernels, at the TL the reference pins to a 32-row block, so
 the panel pipeline's two ends agree whatever the row counts.
 
+The GF(2^16) pair (:func:`pack_words16`, :func:`unpack_words16`, K10)
+ports ``_pack16_kernel`` / ``_unpack16_kernel``: interleaved-u16 words
+``(rows, TW)`` become 16 bit-planes ``(rows, 16, TW/16)`` through the
+16x16 delta-swap, with the reference's sublane bijection. Beside it sit
+the layout helpers of the byte-sliced GF(2^16) route: the host relayout
+between u16 symbols and adjacent lo/hi byte rows, and its device
+counterpart on words (plain PyTorch bit ops, as in the reference).
+
 Each kernel has a plain PyTorch version beside it. The wrappers take the
 plain version only for a tensor on the CPU; a CUDA tensor launches the
 kernel or raises. ``LAUNCHES`` counts kernel launches.
@@ -27,13 +35,16 @@ kernel or raises. ``LAUNCHES`` counts kernel launches.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from noise_ec_tpu_torch.ops import _build
 
 _ROUNDS = ((1, 0x55555555), (2, 0x33333333), (4, 0x0F0F0F0F))
+_ROUNDS16 = _ROUNDS + ((8, 0x00FF00FF),)
 LAUNCHES = {"pack_lanes": 0, "unpack_lanes": 0, "pack_lanes_blocked": 0,
-            "unpack_lanes_blocked": 0}
+            "unpack_lanes_blocked": 0, "pack_words16": 0,
+            "unpack_words16": 0}
 
 # The reference's row block for the wide-geometry pack, and the VMEM budget
 # its TL rule sizes that block's double-buffered in and out tiles against
@@ -43,11 +54,11 @@ _LANE_VMEM_BUDGET = 12 << 20
 
 
 def lane_quantum(m: int = 8) -> int:
-    """Pad-to multiple of the lane kernels: 8*m*128 words (TL >= 128)."""
-    if m != 8:
-        raise NotImplementedError(
-            "the port packs GF(2^8) (m=8) only; GF(2^16) is ROADMAP queue 1"
-        )
+    """Pad-to multiple of the words entries: 8*m*128 words — the lane
+    kernels' unit for GF(2^8), and for GF(2^16) the reference's
+    interleaved-words quantum, which K10's tile divides."""
+    if m not in (8, 16):
+        raise ValueError(f"no words layout for m={m}")
     return 1024 * m
 
 
@@ -76,17 +87,28 @@ def blocked_lane_tl(TW: int) -> int:
     raise ValueError(f"word count {TW} is not a multiple of {lane_quantum()}")
 
 
-def transpose8(V: torch.Tensor, dim: int) -> torch.Tensor:
-    """8x8 bit transpose across the size-8 ``dim`` of int32 words:
-    out[i] bit (8b + j) == in[j] bit (8b + i). An involution."""
+def _delta_swap(V: torch.Tensor, dim: int, rounds) -> torch.Tensor:
     w = list(V.unbind(dim))
-    for d, mask in _ROUNDS:
-        for i in range(8):
+    for d, mask in rounds:
+        for i in range(len(w)):
             if i & d == 0:
                 t = ((w[i] >> d) ^ w[i + d]) & mask
                 w[i] = w[i] ^ (t << d)
                 w[i + d] = w[i + d] ^ t
     return torch.stack(w, dim)
+
+
+def transpose8(V: torch.Tensor, dim: int) -> torch.Tensor:
+    """8x8 bit transpose across the size-8 ``dim`` of int32 words:
+    out[i] bit (8b + j) == in[j] bit (8b + i). An involution."""
+    return _delta_swap(V, dim, _ROUNDS)
+
+
+def transpose16(V: torch.Tensor, dim: int) -> torch.Tensor:
+    """16x16 bit transpose across the size-16 ``dim`` of int32 words, one
+    per 16-bit half h: out[i] bit (16h + j) == in[j] bit (16h + i). The
+    d=8 round's exchanged bits stay inside their half. An involution."""
+    return _delta_swap(V, dim, _ROUNDS16)
 
 
 def _check(x: torch.Tensor, ndim: int, TW: int, tl: int) -> None:
@@ -100,13 +122,10 @@ def _check(x: torch.Tensor, ndim: int, TW: int, tl: int) -> None:
 
 
 def _launch(fn: str, src: torch.Tensor, out: torch.Tensor, rows: int,
-            TW: int, tl: int) -> None:
+            TW: int, tl_arg: int) -> None:
     if src.device.type != "cuda":
         raise ValueError(f"no kernel for device {src.device}")
-    _build.launch(
-        fn, src, _build.ptr(src), _build.ptr(out), rows, TW,
-        tl.bit_length() - 1,
-    )
+    _build.launch(fn, src, _build.ptr(src), _build.ptr(out), rows, TW, tl_arg)
 
 
 def pack_words_lanes_plain(words: torch.Tensor, tl: int) -> torch.Tensor:
@@ -132,7 +151,7 @@ def _pack(words: torch.Tensor, tl: int, counter: str) -> torch.Tensor:
     rows = words.shape[0]
     out = torch.empty((rows, 8, 8, TW // 64), dtype=torch.int32,
                       device=words.device)
-    _launch("ec_pack_lanes", words, out, rows, TW, tl)
+    _launch("ec_pack_lanes", words, out, rows, TW, tl.bit_length() - 1)
     LAUNCHES[counter] += 1
     return out
 
@@ -147,7 +166,7 @@ def _unpack(planes: torch.Tensor, tl: int, counter: str) -> torch.Tensor:
         return unpack_words_lanes_plain(planes, tl)
     rows = planes.shape[0]
     out = torch.empty((rows, TW), dtype=torch.int32, device=planes.device)
-    _launch("ec_unpack_lanes", planes, out, rows, TW, tl)
+    _launch("ec_unpack_lanes", planes, out, rows, TW, tl.bit_length() - 1)
     LAUNCHES[counter] += 1
     return out
 
@@ -187,3 +206,132 @@ def unpack_words_lanes_blocked(planes: torch.Tensor) -> torch.Tensor:
     64*W8) words; K3's kernel with its own launch count."""
     return _unpack(planes, blocked_lane_tl(64 * planes.shape[-1]),
                    "unpack_lanes_blocked")
+
+
+# -- GF(2^16): K10 and the byte-sliced layouts -------------------------------
+
+
+def tile_lanes16(TW: int) -> int:
+    """K10's TL: the reference's ``_tile_lanes(TW, 512, group=16)``,
+    min(512, max(128, TW/16)) halved until its 16-word groups tile TW
+    (not always a power of two: 384 at TW = 6144)."""
+    TL = min(512, max(128, TW // 16))
+    while TW % (16 * TL):
+        TL //= 2
+        if TL < 128:
+            raise ValueError(f"word count {TW} not divisible by 16*128")
+    return TL
+
+
+def pack_words16_plain(words: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch K10 pack: (rows, TW) int32 -> (rows, 16, TW/16)."""
+    rows, TW = words.shape
+    TL = tile_lanes16(TW)
+    V = transpose16(words.reshape(rows, TW // (16 * TL), 16, TL), 2)
+    return V.permute(0, 2, 1, 3).reshape(rows, 16, TW // 16).contiguous()
+
+
+def unpack_words16_plain(planes: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch K10 unpack: (rows, 16, W) int32 -> (rows, 16*W)."""
+    rows, _, W = planes.shape
+    TL = tile_lanes16(16 * W)
+    V = planes.reshape(rows, 16, W // TL, TL).permute(0, 2, 1, 3)
+    return transpose16(V, 2).reshape(rows, 16 * W).contiguous()
+
+
+def _check16(x: torch.Tensor, ndim: int) -> int:
+    if x.dtype != torch.int32 or x.dim() != ndim or not x.is_contiguous():
+        raise ValueError(
+            f"expected a contiguous {ndim}-D int32 tensor, got {x.dtype} "
+            f"{tuple(x.shape)}"
+        )
+    TW = x.shape[-1] * (16 if ndim == 3 else 1)
+    return tile_lanes16(TW)
+
+
+def pack_words16(words: torch.Tensor) -> torch.Tensor:
+    """K10 pack: (rows, TW) int32 interleaved-u16 words -> (rows, 16,
+    TW/16) bit-planes; plane i of row j holds bit i of its 32 symbols a
+    group. TW must be a multiple of 16*128. Inverse:
+    :func:`unpack_words16`."""
+    tl = _check16(words, 2)
+    if words.device.type == "cpu":
+        return pack_words16_plain(words)
+    rows, TW = words.shape
+    out = torch.empty((rows, 16, TW // 16), dtype=torch.int32,
+                      device=words.device)
+    _launch("ec_pack_words16", words, out, rows, TW, tl)
+    LAUNCHES["pack_words16"] += 1
+    return out
+
+
+def unpack_words16(planes: torch.Tensor) -> torch.Tensor:
+    """K10 unpack: (rows, 16, W) int32 bit-planes -> (rows, 16*W) words."""
+    tl = _check16(planes, 3)
+    if planes.shape[1] != 16:
+        raise ValueError(f"expected (rows, 16, W) planes, got "
+                         f"{tuple(planes.shape)}")
+    if planes.device.type == "cpu":
+        return unpack_words16_plain(planes)
+    rows, _, W = planes.shape
+    out = torch.empty((rows, 16 * W), dtype=torch.int32, device=planes.device)
+    _launch("ec_unpack_words16", planes, out, rows, 16 * W, tl)
+    LAUNCHES["unpack_words16"] += 1
+    return out
+
+
+def pack_u16_bytesliced(x: np.ndarray, out: np.ndarray = None) -> np.ndarray:
+    """HOST: (k, S) uint16 symbols -> (2k, S) uint8 byte rows, row 2j the
+    lo bytes of shard j and row 2j+1 its hi bytes. With ``out`` (a (2k,
+    >= S) uint8 view, e.g. a staging page) the rows are written into its
+    first S columns in the one pass."""
+    k, S = x.shape
+    src = np.ascontiguousarray(x, dtype="<u2").view(np.uint8).reshape(k, S, 2)
+    if out is None:
+        out = np.empty((2 * k, S), dtype=np.uint8)
+    out[0::2, :S] = src[:, :, 0]
+    out[1::2, :S] = src[:, :, 1]
+    return out
+
+
+def unpack_u16_bytesliced(b: np.ndarray) -> np.ndarray:
+    """HOST: (2r, S) uint8 byte rows -> (r, S) uint16 symbols
+    (:func:`pack_u16_bytesliced` inverse)."""
+    r2, S = b.shape
+    out = np.empty((r2 // 2, S), dtype="<u2")
+    sym = out.view(np.uint8).reshape(r2 // 2, S, 2)
+    sym[:, :, 0] = b[0::2]
+    sym[:, :, 1] = b[1::2]
+    return out
+
+
+def _byte(w: torch.Tensor, i: int) -> torch.Tensor:
+    return (w >> (8 * i)) & 0xFF if i else w & 0xFF
+
+
+def words16_to_bytesliced(xw: torch.Tensor) -> torch.Tensor:
+    """DEVICE: (k, TW) int32 interleaved-u16 words -> (2k, TW/2) int32
+    byte-sliced words (row 2j the lo bytes of shard j, 2j+1 the hi
+    bytes), by bit ops on the words. TW must be even. Inverse:
+    :func:`bytesliced_to_words16`."""
+    k, TW = xw.shape
+    pairs = xw.reshape(k, TW // 2, 2)
+    w0, w1 = pairs[..., 0], pairs[..., 1]
+    lo = (_byte(w0, 0) | (_byte(w0, 2) << 8) | (_byte(w1, 0) << 16)
+          | (_byte(w1, 2) << 24))
+    hi = (_byte(w0, 1) | (_byte(w0, 3) << 8) | (_byte(w1, 1) << 16)
+          | (_byte(w1, 3) << 24))
+    return torch.stack([lo, hi], dim=1).reshape(2 * k, TW // 2)
+
+
+def bytesliced_to_words16(bw: torch.Tensor) -> torch.Tensor:
+    """DEVICE: (2r, TW8) int32 byte-sliced words -> (r, 2*TW8) int32
+    interleaved-u16 words (:func:`words16_to_bytesliced` inverse)."""
+    r2, TW8 = bw.shape
+    pairs = bw.reshape(r2 // 2, 2, TW8)
+    lo, hi = pairs[:, 0, :], pairs[:, 1, :]
+    w0 = (_byte(lo, 0) | (_byte(hi, 0) << 8) | (_byte(lo, 1) << 16)
+          | (_byte(hi, 1) << 24))
+    w1 = (_byte(lo, 2) | (_byte(hi, 2) << 8) | (_byte(lo, 3) << 16)
+          | (_byte(hi, 3) << 24))
+    return torch.stack([w0, w1], dim=2).reshape(r2 // 2, 2 * TW8)

@@ -229,9 +229,11 @@ def test_default_device_is_the_card():
 
 
 def test_unported_routes_raise(monkeypatch):
-    """The panel route runs; GF(2^16) and the MXU route still raise. No
-    GF(2^8) matrix reaches the MXU budget, so a lowered budget sends
-    RS(100,30) there."""
+    """The panel route, GF(2^16) and the MXU route run; the one route the
+    reference has no kernel for either, an "mxu" matrix on the interleaved
+    GF(2^16) words entry, still raises. No RS(k, r) parity matrix over
+    GF(2^8) reaches the MXU budget, so a lowered budget sends RS(100,30)
+    there."""
     import noise_ec_tpu_torch.ops.dispatch as dispatch
 
     codec = DeviceCodec(device="cpu")
@@ -245,17 +247,27 @@ def test_unported_routes_raise(monkeypatch):
     np.testing.assert_array_equal(
         codec.matmul_stripes(G[100:], np.stack(data)), np.stack(want[100:])
     )
-    with pytest.raises(NotImplementedError, match="GF"):
-        ReedSolomon(4, 2, field="gf65536", device="cpu")
-    with pytest.raises(NotImplementedError, match="GF"):
-        DeviceCodec(field="gf65536", device="cpu")
+    rs16 = ReedSolomon(4, 2, field="gf65536", device="cpu")
+    want16 = RefRS(4, 2, field="gf65536", backend="numpy").encode(data[:4])
+    assert _same(rs16.encode(data[:4]), want16)
+    assert DeviceCodec(field="gf65536", device="cpu").field == "gf65536"
+    with pytest.raises(ValueError, match="field"):
+        DeviceCodec(field="gf2", device="cpu")
     monkeypatch.setattr(dispatch, "PANEL_XOR_BUDGET", 90_000)
     mxu = DeviceCodec(device="cpu")
     assert mxu.route_for(G[100:]) == "mxu"
-    with pytest.raises(NotImplementedError, match="MXU"):
-        mxu.matmul_stripes(G[100:], np.stack(data))
-    with pytest.raises(NotImplementedError, match="MXU"):
-        ReedSolomon(100, 30, device="cpu").encode(data)
+    np.testing.assert_array_equal(
+        mxu.matmul_stripes(G[100:], np.stack(data)), np.stack(want[100:])
+    )
+    assert _same(ReedSolomon(100, 30, device="cpu").encode(data), want)
+    wide = DeviceCodec(field="gf65536", device="cpu")
+    M16 = rs16.G[4:]
+    monkeypatch.setattr(dispatch, "PANEL_XOR_BUDGET", 100)
+    assert wide.route_for(M16) == "mxu"
+    with pytest.raises(NotImplementedError, match="byte-sliced"):
+        wide.matmul_words(M16, torch.zeros((4, 64), dtype=torch.int32))
+    with pytest.raises(NotImplementedError, match="mxu"):
+        wide.bits_rows_for(M16)
 
 
 def test_words_on_another_device_are_refused():

@@ -81,8 +81,9 @@ def test_lane_tl_rule(TW, tl):
 
 def test_lane_rules_reject_what_they_cannot_tile():
     assert lane_quantum(8) == 8192
-    with pytest.raises(NotImplementedError):
-        lane_quantum(16)
+    assert lane_quantum(16) == 16384  # the interleaved GF(2^16) quantum
+    with pytest.raises(ValueError):
+        lane_quantum(4)
     with pytest.raises(ValueError):
         lane_tl(1000)
     x = torch.zeros((2, 8192), dtype=torch.int32)
