@@ -17,6 +17,10 @@ before printing any result. Phases (one JSON line each):
    full width on RS(200,56)'s GF(2^16) parity (1 MiB shards, 400 byte
    rows) and on a dense (200, 200) GF(2^8) matrix, and the 16-plane pack
    and unpack K10 at RS(10,4)'s GF(2^16) shapes, with their round trip;
+   split_kernels — the K-sliced fused encode K5 against its plain version
+   on RS(50,20)'s parity and its (20, 50) recovery matrix (each also
+   against the NumPy field arithmetic on a 64 KiB slice), and RS(10,4)
+   forced onto K5, also against K1;
 3. main_path — ``ReedSolomon(10, 4)`` on the card: split a 10 MiB object,
    encode, verify, lose shards {0, 5, 11}, reconstruct, join; a batch of
    five 1 MiB stripes through the coalescer; RS(4,2) on a 64 KiB message;
@@ -34,7 +38,13 @@ before printing any result. Phases (one JSON line each):
    reconstruct, reconstruct_data and join; the interleaved-u16
    ``matmul_words`` (K10 around K4 at RS(10,4), around K7 at RS(60,20)),
    equal to the byte-sliced entry's result; and a dense (200, 200) GF(2^8)
-   matrix through ``matmul_stripes`` (K8);
+   matrix through ``matmul_stripes`` (K8). Then the streams (BASELINE
+   config 3): ``StreamingEncoder(50, 20)`` on 400 MiB in 50 MiB chunks,
+   decoded by ``StreamingDecoder`` at 10 data + 10 parity erasures (K5
+   both ways); RS(17,3) on 272 MiB in 17 MiB chunks, decoded at 3 (K1);
+   64 MiB in 4 MiB chunks at RS(50,20) with a short tail, through
+   ``decode_stream``; and ``ReedSolomon(30, 10, field="gf65536")`` on a
+   30 MiB object, encode and a 10-erasure reconstruct (K5);
 4. times — CUDA-event medians with the L2 cache flushed between launches:
    each kernel and its plain version beside the least time the card could
    take, the codec's RS(10,4) encode rate (device-resident words and end
@@ -45,7 +55,13 @@ before printing any result. Phases (one JSON line each):
    pre-expanded bits (a yardstick for the dot alone), K10 beside its byte
    bounds, ``matmul_words_bytesliced`` and the interleaved ``matmul_words``,
    ``encode`` GB/s and ``reconstruct`` p50 at 3 and at 56 erasures over
-   GF(2^16), and the seconds to plan a new recovery matrix.
+   GF(2^16), and the seconds to plan a new recovery matrix;
+   split_times — K5 at RS(50,20) beside its bound and its plain version,
+   and on the recovery matrix; ``matmul_words`` there through K5 and
+   through the forced pipeline; K1 at its plan against K5 forced on
+   RS(30,10) and RS(40,12); stream encode and decode GB/s from host bytes
+   at RS(17,3) and RS(50,20) with the device's share of the wall time;
+   and the bounds of the kernels still to port.
 
 Then a ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
 ``--panel-sweep`` adds, before those two lines, the panel matmul's time
@@ -258,10 +274,10 @@ def phase_kernels(rng, device, results: dict) -> dict:
         plan = fused_plan(bits_rows, 8 * k)
         planner = "fused"
         if plan is None:
-            # The planner sends this matrix to the pipeline; hold the fused
-            # kernel to its plain version all the same, on one warp a block
-            # with the temp cap that fills shared memory.
-            planner = "pipeline"
+            # The planner sends this matrix to another kernel; hold the
+            # fused kernel to its plain version all the same, on one warp a
+            # block with the temp cap that fills shared memory.
+            planner = codec.plan_for(M)[0]
             full = compile_network(bits_rows, 8 * k)
             used = int((full.in_slot >= 0).sum())
             cap = SMEM_BYTES // (4 * 32) - used
@@ -454,6 +470,207 @@ def phase_gf16_kernels(rng, device, results: dict) -> dict:
     report["k10"] = {"rows": [10, 4], "planes": list(planes.shape),
                      "equal": True}
     return report
+
+
+# RS(50,20) at the code's limit: 10 data and 10 parity shards lost.
+SPLIT_LOST = tuple(range(0, 20, 2)) + tuple(range(50, 70, 2))
+# RS(17,3)'s three lost shards: data at both ends and the middle parity.
+LOST_17_3 = (0, 16, 18)
+# Streams are timed end to end this many times each.
+STREAM_REPS = 2
+# BASELINE config 3's streams: RS(50,20) and RS(17,3) at 1 MiB shards (8
+# and 16 chunks), and the object-stream shape (4 MiB chunks).
+STREAM_50_20 = 400 * MIB
+STREAM_17_3 = 272 * MIB
+OBJECT_STREAM, OBJECT_CHUNK = 64 * MIB, 4 * MIB
+
+
+def rs_50_20():
+    """GF(2^8) RS(50,20)'s generator and its (20, 50) recovery matrix for
+    SPLIT_LOST."""
+    from noise_ec_tpu_torch.gf import GF256
+    from noise_ec_tpu_torch.matrix import (
+        generator_matrix,
+        reconstruction_matrix,
+    )
+
+    gf = GF256()
+    G = generator_matrix(gf, 50, 70, "cauchy")
+    present = [i for i in range(70) if i not in SPLIT_LOST]
+    return gf, G, reconstruction_matrix(gf, G, present[:50],
+                                        list(SPLIT_LOST))
+
+
+def phase_split_kernels(rng, device, results: dict) -> dict:
+    """K5 against its plain version on the card, byte for byte, at 1 MiB
+    shards: RS(50,20)'s parity and (20, 50) recovery matrix, each also
+    against the NumPy field arithmetic on a 64 KiB slice, and RS(10,4)
+    forced onto K5, also against K1."""
+    from noise_ec_tpu_torch.matrix import generator_matrix, host_matvec
+    from noise_ec_tpu_torch.ops.dispatch import DeviceCodec
+    from noise_ec_tpu_torch.ops.fused import (
+        fused_encode_words,
+        fused_split_encode_words,
+        fused_split_encode_words_plain,
+    )
+
+    gf, G, R = rs_50_20()
+    codec = DeviceCodec(device=device)
+    report = {"phase": "split_kernels"}
+    err = 0
+    for name, M, tier in (
+            ("RS(50,20) parity", G[50:], None),
+            ("RS(50,20) recovery (20,50)", R, None),
+            ("RS(10,4) parity, forced", generator_matrix(gf, 10, 14)[10:],
+             "split")):
+        r, k = M.shape
+        t0 = time.monotonic()
+        kind, threads, prog, _ = codec.plan_for(M, tier)
+        plan_s = time.monotonic() - t0
+        check(kind == "split", f"{name} plans onto K5")
+        w = rand_words(rng, (k, TW), device)
+        out = fused_split_encode_words(prog, w, r, threads)
+        e = max_abs_err(out, fused_split_encode_words_plain(prog, w, r, 512))
+        cols = HOST_SLICE // 4
+        host = host_matvec(gf, M, w[:, :cols].cpu().numpy().view(np.uint8))
+        torch.cuda.synchronize()
+        check(e == 0, f"K5 {name} vs plain")
+        check(np.array_equal(out[:, :cols].cpu().numpy().view(np.uint8),
+                             host), f"K5 {name} vs host_matvec (64 KiB)")
+        if tier == "split":
+            _, t1, p1, _ = codec.plan_for(M)
+            check(torch.equal(out, fused_encode_words(p1, w, r, t1)),
+                  f"K5 {name} vs K1")
+        report[name] = {"threads": threads, "ksl": prog.ksl,
+                        "phases": prog.P, "slots": prog.n_slots,
+                        "xors": prog.cost, "plan_seconds": plan_s,
+                        "equal": True}
+        err = max(err, e)
+    results["fused_split"]["max_abs_err"] = err
+    return report
+
+
+def degraded_rows(chunks, present):
+    """(index, rows) of each encoded chunk's ``present`` shards, built
+    from its data and parity rows without assembling the codeword."""
+    for c in chunks:
+        k = c.data.shape[0]
+        rows = np.empty((len(present), c.data.shape[1]), dtype=np.uint8)
+        for i, j in enumerate(present):
+            rows[i] = c.data[j] if j < k else c.parity[j - k]
+        yield c.index, rows
+
+
+def main_path_streams(rng, run_path, out: dict) -> dict:
+    """The streaming paths of main_path, each through ``run_path`` into
+    ``out``: RS(50,20) on a 400 MiB stream in 50 MiB chunks (depth 4),
+    decoded at 20 erasures; RS(17,3) on 272 MiB in 17 MiB chunks, decoded
+    at 3; the object-stream shape (64 MiB in 4 MiB chunks at RS(50,20),
+    a short tail); and GF(2^16) ``ReedSolomon(30, 10)`` on a 30 MiB object
+    at 1 MiB shards, encode and a 10-erasure reconstruct. Every chunk's
+    parity is checked against the NumPy field arithmetic on a 64 KiB
+    slice, every rebuilt codeword against the encoded one, and every
+    stream round trip in full."""
+    from noise_ec_tpu_torch.codec import ReedSolomon
+    from noise_ec_tpu_torch.matrix import host_matvec
+    from noise_ec_tpu_torch.parallel import (
+        StreamChunk,
+        StreamingDecoder,
+        StreamingEncoder,
+        decode_stream,
+    )
+
+    gf, _, _ = rs_50_20()
+    present50 = [i for i in range(70) if i not in SPLIT_LOST]
+    present17 = [i for i in range(20) if i not in LOST_17_3]
+    cases = {
+        "stream_rs_50_20": (StreamingEncoder(50, 20, chunk_bytes=50 * SHARD),
+                            StreamingDecoder(50, 20), STREAM_50_20,
+                            present50),
+        "stream_rs_17_3": (StreamingEncoder(17, 3, chunk_bytes=17 * SHARD),
+                           StreamingDecoder(17, 3), STREAM_17_3, present17),
+        "stream_object_4mib": (StreamingEncoder(50, 20,
+                                                chunk_bytes=OBJECT_CHUNK),
+                               None, OBJECT_STREAM, None),
+    }
+    report = {}
+    for name, (enc, dec, size, present) in cases.items():
+        data = rng.integers(0, 256, size=size, dtype=np.uint8).tobytes()
+        chunks, out[f"{name}_encode"] = run_path(
+            lambda: list(enc.encode_bytes(data, depth=4)))
+        check([c.index for c in chunks] == list(range(len(chunks))),
+              f"{name} chunks in order")
+        check(decode_stream(chunks, enc.k, len(data)) == data,
+              f"{name} round trip")
+        M = enc.codec.parity_matrix
+        for c in chunks:
+            cols = min(HOST_SLICE, c.data.shape[1])
+            check(np.array_equal(c.parity[:, :cols],
+                                 host_matvec(gf, M, c.data[:, :cols])),
+                  f"{name} chunk {c.index} parity vs host_matvec (64 KiB)")
+        report[name] = {"stream_bytes": size, "chunks": len(chunks),
+                        "chunk_bytes": enc.chunk_bytes,
+                        "stride_bytes": int(chunks[0].data.shape[1]),
+                        "tail_data_len": chunks[-1].data_len}
+        if dec is None:
+            continue
+        rebuilt, out[f"{name}_decode"] = run_path(
+            lambda: list(dec.reconstruct_stream(
+                degraded_rows(chunks, present), present, depth=4)))
+        check([i for i, _ in rebuilt] == [c.index for c in chunks],
+              f"{name} rebuilt chunks in order")
+        for (i, rows), c in zip(rebuilt, chunks):
+            check(np.array_equal(rows[:enc.k], c.data)
+                  and np.array_equal(rows[enc.k:], c.parity),
+                  f"{name} chunk {i} rebuilt")
+        check(decode_stream(
+            [StreamChunk(index=i, shards=rows, data_len=c.data_len)
+             for (i, rows), c in zip(rebuilt, chunks)],
+            enc.k, len(data)) == data, f"{name} round trip after the loss")
+        report[name]["lost"] = [i for i in range(enc.n) if i not in present]
+        del rebuilt
+    n50 = report["stream_rs_50_20"]["chunks"]
+    n17 = report["stream_rs_17_3"]["chunks"]
+    nobj = report["stream_object_4mib"]["chunks"]
+    check(report["stream_object_4mib"]["tail_data_len"] < OBJECT_CHUNK,
+          "the object stream's tail chunk is short")
+    for path, kernel, n in (("stream_rs_50_20_encode", "fused_split", n50),
+                            ("stream_rs_50_20_decode", "fused_split", n50),
+                            ("stream_rs_17_3_encode", "fused_encode", n17),
+                            ("stream_rs_17_3_decode", "fused_encode", n17),
+                            ("stream_object_4mib_encode", "fused_split",
+                             nobj)):
+        check(out[path][kernel] == n and sum(out[path].values()) == n,
+              f"{path}: one {kernel} launch a chunk and no other kernel")
+
+    obj = rng.integers(0, 256, size=30 * SHARD, dtype=np.uint8).tobytes()
+    rs16 = ReedSolomon(30, 10, field="gf65536")
+    check(rs16._dev.plan_for(rs16.G[30:])[0] == "split",
+          "GF(2^16) RS(30,10) parity plans onto K5")
+    lost16 = set(range(0, 30, 3))  # ten data shards: a (10, 30) recovery
+
+    def rs16_path():
+        shards = rs16.split(obj)
+        enc = rs16.encode(shards)
+        holes = [None if i in lost16 else s for i, s in enumerate(enc)]
+        rec = rs16.reconstruct(holes)
+        return shards, enc, rec, rs16.join(rec, len(obj))
+
+    (shards, enc, rec, joined), out["rs16_30_10"] = run_path(rs16_path)
+    ref = ReedSolomon(30, 10, field="gf65536", backend="numpy")
+    cut = [s[:HOST_SLICE] for s in shards]
+    check(all(np.array_equal(a[:HOST_SLICE], b)
+              for a, b in zip(enc, ref.encode(cut))),
+          "GF(2^16) RS(30,10) encode vs numpy backend (64 KiB slice)")
+    check(all(np.array_equal(a, b) for a, b in zip(rec, enc)),
+          "GF(2^16) RS(30,10) reconstruct at 10 erasures")
+    check(joined == obj, "GF(2^16) RS(30,10) join")
+    check(out["rs16_30_10"]["fused_split"] == 2
+          and sum(out["rs16_30_10"].values()) == 2,
+          "GF(2^16) RS(30,10): encode and reconstruct on K5 alone")
+    report["rs16_30_10"] = {"object_bytes": len(obj),
+                            "erasures": sorted(lost16)}
+    return {"streams": report}
 
 
 def main_path_gf16(rng, run_path, out: dict) -> dict:
@@ -710,10 +927,11 @@ def phase_main_path(rng) -> dict:
     check(out["rs_200_56"]["fused_encode"] == 0,
           "RS(200,56) runs no fused-kernel launch")
     gf16_report = main_path_gf16(rng, run_path, out)
+    stream_report = main_path_streams(rng, run_path, out)
     launches = {name: sum(c[name] for c in out.values())
                 for name in out["pipeline"]}
     return {"phase": "main_path", "launches": launches, "by_path": out,
-            **gf16_report,
+            **gf16_report, **stream_report,
             "rs_10_4_object_bytes": len(obj), "erasures": [0, 5, 11],
             "batch": len(batch), "rs_4_2_message_bytes": len(small),
             "rs_200_56_object_bytes": len(wide_obj),
@@ -1151,6 +1369,146 @@ def phase_gf16_times(rng, device, results: dict) -> dict:
     }
 
 
+def phase_split_times(rng, device, results: dict) -> dict:
+    """K5 at RS(50,20), 1 MiB shards, beside its bound and its plain
+    version, and on the (20, 50) recovery matrix; the codec on the same
+    parity through K5 and through the forced pipeline; K1 at its plan and
+    K5 forced on RS(30,10) and RS(40,12); streaming encode and decode GB/s
+    from host bytes at RS(17,3) and RS(50,20), with the device's share of
+    the wall time."""
+    from noise_ec_tpu_torch.matrix import generator_matrix
+    from noise_ec_tpu_torch.ops.dispatch import DeviceCodec
+    from noise_ec_tpu_torch.ops.fused import (
+        fused_encode_words,
+        fused_split_encode_words,
+        fused_split_encode_words_plain,
+    )
+    from noise_ec_tpu_torch.ops.network import compile_network
+    from noise_ec_tpu_torch.parallel import StreamingDecoder, StreamingEncoder
+
+    timer = Timer(device)
+    codec = DeviceCodec(device=device)
+    gf, G, R = rs_50_20()
+    groups = TW // 8
+
+    def matrix_bound(M):
+        """One bound per matrix, whichever kernel runs it: bytes, k rows in
+        and r out; operations, the XORs of the whole network factored
+        uncapped (no slicing, no accumulates) and one transpose per row,
+        on every 8-word group. A plan that factors worse does not loosen
+        its own bound. Returns (bound_ms, bound_by, bound_xors)."""
+        r, k = M.shape
+        xors = compile_network(codec.bits_rows_for(M), 8 * k).cost
+        return bound((k + r) * SHARD, xors * groups
+                     + (k + r) * groups * TRANSPOSE_OPS) + (xors,)
+
+    M = G[50:]
+    _, threads, prog, _ = codec.plan_for(M)
+    words = rand_words(rng, (50, TW), device)
+    b_ms, b_by, b_xors = matrix_bound(M)
+    results["fused_split"].update(
+        ms=timer.median_ms(
+            lambda: fused_split_encode_words(prog, words, 20, threads)),
+        plain_ms=timer.median_ms(
+            lambda: fused_split_encode_words_plain(prog, words, 20, 512),
+            PLAIN_PANEL_REPS, warmup=False),
+        bound_ms=b_ms, bound_by=b_by, bound_xors=b_xors,
+        plan_xors=prog.cost, threads=threads, ksl=prog.ksl,
+    )
+    _, rt, rprog, _ = codec.plan_for(R)
+    r_ms, r_by, r_xors = matrix_bound(R)
+    recovery = {"threads": rt, "ksl": rprog.ksl, "xors": rprog.cost,
+                "bound_ms": r_ms, "bound_by": r_by, "bound_xors": r_xors,
+                "ms": timer.median_ms(
+                    lambda: fused_split_encode_words(rprog, words, 20, rt))}
+    words_ms = timer.median_ms(lambda: codec.matmul_words(M, words))
+    pipe_ms = timer.median_ms(
+        lambda: codec.matmul_words(M, words, tier="pipeline"))
+
+    k1_vs_k5 = {}
+    for k, r in ((30, 10), (40, 12)):
+        Mx = generator_matrix(gf, k, k + r, "cauchy")[k:]
+        kind, t1, p1, _ = codec.plan_for(Mx)
+        check(kind == "fused", f"RS({k},{r}) plans onto K1")
+        _, t5, p5, _ = codec.plan_for(Mx, "split")
+        w = rand_words(rng, (k, TW), device)
+        check(torch.equal(fused_encode_words(p1, w, r, t1),
+                          fused_split_encode_words(p5, w, r, t5)),
+              f"RS({k},{r}) K1 vs K5")
+        bms, bby, bxors = matrix_bound(Mx)
+        row = {"bound_ms": bms, "bound_by": bby, "bound_xors": bxors}
+        for name, fn, t, pg in (
+                ("k1", lambda: fused_encode_words(p1, w, r, t1), t1, p1),
+                ("k5", lambda: fused_split_encode_words(p5, w, r, t5), t5,
+                 p5)):
+            row[name] = {"threads": t, "slots": pg.n_slots, "xors": pg.cost,
+                         "ms": timer.median_ms(fn)}
+        row["k5"]["ksl"] = p5.ksl
+        k1_vs_k5[f"RS({k},{r})"] = row
+
+    streams = {}
+    for name, k, r, size, lost in (("rs_17_3", 17, 3, STREAM_17_3,
+                                    LOST_17_3),
+                                   ("rs_50_20", 50, 20, STREAM_50_20,
+                                    SPLIT_LOST)):
+        enc = StreamingEncoder(k, r, chunk_bytes=k * SHARD)
+        dec = StreamingDecoder(k, r)
+        present = [i for i in range(k + r) if i not in lost]
+        data = rng.integers(0, 256, size=size, dtype=np.uint8).tobytes()
+        chunks = list(enc.encode_bytes(data))  # plans the parity matrix
+        rows = list(degraded_rows(chunks, present))
+        list(dec.reconstruct_stream(iter(rows[:1]), present))  # and recovery
+        enc_s, dec_s = [], []
+        for _ in range(STREAM_REPS):
+            t0 = time.perf_counter()
+            chunks = list(enc.encode_bytes(data))
+            enc_s.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            list(dec.reconstruct_stream(iter(rows), present))
+            dec_s.append(time.perf_counter() - t0)
+        # The product alone on one chunk, device-resident, for the device's
+        # share of each chunk's wall time.
+        w = rand_words(rng, (1, k, TW), device)
+        wp = rand_words(rng, (1, len(present), TW), device)
+        enc_dev_ms = timer.median_ms(
+            lambda: enc.codec.device_codec().matmul_words_batch(
+                enc.codec.parity_matrix, w))
+        dec_dev_ms = timer.median_ms(
+            lambda: dec.codec.reconstruct_batch_words(wp, present))
+        n = len(chunks)
+        streams[name] = {
+            "stream_bytes": size, "chunks": n, "erasures": list(lost),
+            "encode_seconds": enc_s, "decode_seconds": dec_s,
+            "encode_gbps": size / min(enc_s) / 1e9,
+            "decode_gbps": size / min(dec_s) / 1e9,
+            "encode_product_ms_per_chunk": enc_dev_ms,
+            "decode_product_ms_per_chunk": dec_dev_ms,
+            "encode_device_share": n * enc_dev_ms / 1e3 / min(enc_s),
+            "decode_device_share": n * dec_dev_ms / 1e3 / min(dec_s),
+        }
+        del chunks, rows, data
+    # Bounds of the kernels still to port, at the reference's shapes for
+    # RS(10,4) at 1 MiB shards: K9 moves K2's and K3's bytes; K11 and K12
+    # take the (32, 80) mask matrix over 80 planes of 32,768 words, an AND
+    # and an XOR per mask bit and word.
+    W = TW // 8
+    unported = {
+        "K9_pack": bound(20 * SHARD, 10 * groups * TRANSPOSE_OPS),
+        "K9_unpack": bound(8 * SHARD, 4 * groups * TRANSPOSE_OPS),
+        "K11_K12": bound((32 * 80 + 80 * W + 32 * W) * 4, 2 * 32 * 80 * W),
+    }
+    return {
+        "phase": "split_times", "reps": REPS, "stream_reps": STREAM_REPS,
+        "unported_bounds_ms": unported,
+        "rs_50_20_recovery_k5": recovery,
+        "rs_50_20_matmul_words_ms": words_ms,
+        "rs_50_20_matmul_words_gbps": 50 * SHARD / words_ms / 1e6,
+        "rs_50_20_matmul_words_pipeline_ms": pipe_ms,
+        "rs_50_20_matmul_words_bound_ms": b_ms,
+        "k1_vs_k5": k1_vs_k5, "streams": streams,
+    }
+
+
 def phase_panel_sweep(rng, device) -> dict:
     """The panel matmul under each panel shape and each block size that
     fits, on each matrix of :func:`panel_matrices`: the evidence for the
@@ -1233,6 +1591,8 @@ def main() -> int:
                          "noise_ec_tpu/ops/pallas_pack.py:448"),
         "unpack_words16": ("noise_ec_tpu_torch/csrc/pack.cu",
                            "noise_ec_tpu/ops/pallas_pack.py:453"),
+        "fused_split": ("noise_ec_tpu_torch/csrc/fused.cu",
+                        "noise_ec_tpu/ops/pallas_fused.py:287"),
     }
     results = {
         name: {"name": name, "route": "cuda", "source": src,
@@ -1243,11 +1603,13 @@ def main() -> int:
     emit(phase_kernels(rng, device, results))
     emit(phase_panel_kernels(rng, device, results))
     emit(phase_gf16_kernels(rng, device, results))
+    emit(phase_split_kernels(rng, device, results))
     main_path = phase_main_path(rng)
     emit(main_path)
     emit(phase_times(rng, device, results))
     emit(phase_panel_times(rng, device, results))
     emit(phase_gf16_times(rng, device, results))
+    emit(phase_split_times(rng, device, results))
     if args.panel_sweep:
         emit(phase_panel_sweep(rng, device))
     kernels = []

@@ -1,9 +1,10 @@
 """PyTorch and CUDA port of ``noise_ec_tpu`` for the NVIDIA H100.
 
 The JAX package stays beside it as the reference; this package imports
-neither it nor jax. Slice 1 covers the Reed-Solomon GF(2^8) encode and
-erasure reconstruct (``codec.ReedSolomon``) down to four hand-written CUDA
-kernels (``ops``). Entry points run on the card unless the caller passes
+neither it nor jax. It covers the Reed-Solomon codec over GF(2^8) and
+GF(2^16) (``codec.ReedSolomon``) and batched and streaming encode and
+decode on one device (``parallel``), down to hand-written CUDA kernels
+(``ops``, ``csrc``). Entry points run on the card unless the caller passes
 ``device="cpu"``, where each kernel's plain PyTorch version runs instead.
 """
 

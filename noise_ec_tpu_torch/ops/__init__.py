@@ -6,7 +6,8 @@ budgets), in hand-written CUDA kernels for the H100 (``csrc/``).
   and their row-blocked use K6 on the panel route; K10, the GF(2^16)
   16-plane pack and unpack, and the byte-sliced GF(2^16) layouts
 - ``gf2mm``    — K4, the sparse GF(2) matmul over tiled planes
-- ``fused``    — K1, pack + network + unpack in one launch, and its planner
+- ``fused``    — K1, pack + network + unpack in one launch, and K5, the
+  same in K slices for networks K1 cannot hold, with their planners
 - ``panel``    — K7, the block-panel K-tiled matmul for wide geometries,
   and its planner
 - ``mxu``      — K8, the dense GF(2) product on the tensor cores (the

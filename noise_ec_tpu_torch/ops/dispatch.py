@@ -7,8 +7,11 @@ GF(2^16). One primitive carries both reference hot loops: encode is
 caches its plan, with the operand uploaded to the card once, on one of
 three routes (:meth:`DeviceCodec.route_for`):
 
-- "baked": the fused kernel K1 (ops/fused.py) when its shared-memory slots
-  fit, else the K2 -> K4 -> K3 pipeline (ops/pack.py, ops/gf2mm.py);
+- "baked": the reference's candidate order, with shared-memory fit where
+  the reference probes a compile: the fused kernel K1 (ops/fused.py) when
+  its slots fit, else the K-sliced fused kernel K5 (ops/fused.py) when one
+  phase's slots and the parity accumulators fit, else the K2 -> K4 -> K3
+  pipeline (ops/pack.py, ops/gf2mm.py);
 - "panel" (wide codes): the row-blocked pack K6 -> the block-panel matmul
   K7 (ops/panel.py) -> the row-blocked unpack;
 - "mxu" (past every XOR-network budget): the dense int8 product K8
@@ -19,7 +22,8 @@ byte rows, and the m=8 routes above run over 2k byte rows with the
 matrix's unpermuted (16r, 16k) bit expansion (flat plane index
 16j + b == (2j + b//8)*8 + b%8). The interleaved-u16 words entry
 (:meth:`DeviceCodec.matmul_words` on a GF(2^16) codec) runs the same bits
-over 16 planes a shard instead: K10 pack -> K4 or K7 -> K10 unpack.
+over 16 planes a shard instead: K10 pack -> K4 or K7 -> K10 unpack (the
+reference's tier 3; its tier 1 runs K1 or K5 at m = 16, not ported yet).
 
 The codec runs on ``device`` ("cuda" unless the caller asks for "cpu").
 On the CPU every wrapper takes its kernel's plain PyTorch version; on the
@@ -29,7 +33,9 @@ for either, an "mxu" matrix on the interleaved GF(2^16) words entry.
 
 Left out for now (ROADMAP queue 1): the codec breaker and its prober, the
 ``DeviceGate`` admission queue, ``obs/device.py`` telemetry, the FEC
-syndrome and decode1 entries, and the mesh tier.
+syndrome and decode1 entries, the mesh tier, and buffer donation
+(``matmul_words_batch(donate=True)``: the streaming window keeps a ring of
+device buffers instead, parallel/streaming.py).
 """
 
 from __future__ import annotations
@@ -43,7 +49,12 @@ import torch.nn.functional as F
 
 from noise_ec_tpu_torch.gf.bitmatrix import expand_generator_bits
 from noise_ec_tpu_torch.gf.field import GF, GF256, GF65536
-from noise_ec_tpu_torch.ops.fused import fused_encode_words, fused_plan
+from noise_ec_tpu_torch.ops.fused import (
+    fused_encode_words,
+    fused_plan,
+    fused_split_encode_words,
+    fused_split_plan,
+)
 from noise_ec_tpu_torch.ops.gf2mm import (
     bits_to_rows,
     gf2_matmul_sparse,
@@ -96,7 +107,7 @@ PANEL_XOR_BUDGET = 600_000
 WORD_QUANTUM = lane_quantum(8)
 WORD_QUANTUM16 = lane_quantum(16)
 
-_TIERS = (None, "fused", "pipeline")
+_TIERS = (None, "fused", "split", "pipeline")
 
 # Expansions kept per codec: a GF(2^16) RS(200,56) parity matrix's is
 # 2.9 MB; what each plan needs is cached beside it.
@@ -223,8 +234,8 @@ class DeviceCodec:
         return hit
 
     def route_for(self, M: np.ndarray) -> str:
-        """Which kernel family runs this matrix: "baked" (K1, or K2 -> K4
-        -> K3), "panel" (wide geometries: K6 -> K7) or "mxu" (past every
+        """Which kernel family runs this matrix: "baked" (K1, K5, or K2 ->
+        K4 -> K3), "panel" (wide geometries: K6 -> K7) or "mxu" (past every
         XOR-network budget: K8) — the reference's three-way answer, with
         the port's thresholds (module constants). The row bound counts
         input byte rows: k for GF(2^8), 2k for GF(2^16)."""
@@ -242,9 +253,11 @@ class DeviceCodec:
         the number of launches the product's K axis is split into.
 
         On the baked route, ``tier`` None takes the planner's choice:
-        "fused" when K1's slots fit (ops/fused.py), else "pipeline"; G is
-        1. Passing "fused" or "pipeline" forces one, as the reference's
-        plan override does; forcing "fused" on a matrix K1 cannot hold
+        "fused" when K1's slots fit (ops/fused.py), else "split" when K5's
+        do (its operand a :class:`~noise_ec_tpu_torch.ops.network.
+        SplitProgram`), else "pipeline"; G is 1. Passing "fused", "split"
+        or "pipeline" forces one, as the reference's plan override does;
+        forcing "fused" or "split" on a matrix its kernel cannot hold
         raises. A panel-routed matrix plans kind "panel" with a
         :class:`~noise_ec_tpu_torch.ops.network.PanelProgram` and the
         planner's G (ops/panel.py :func:`panel_plan`); an "mxu" matrix
@@ -272,22 +285,32 @@ class DeviceCodec:
                     threads, prog, G = panel_plan(bits_rows, C)
                     hit = ("panel", threads, prog, G)
                 else:
-                    plan = (fused_plan(bits_rows, C) if tier != "pipeline"
-                            else None)
-                    if plan is not None:
-                        kind = "fused"
-                    elif tier == "fused":
-                        raise ValueError(
-                            "no fused-kernel plan fits this matrix")
-                    else:
-                        kind = "pipeline"
-                        plan = sparse_plan(bits_rows, C)
-                    hit = (kind,) + tuple(plan) + (1,)
+                    hit = self._baked_plan(bits_rows, C, tier)
             hit = hit[:2] + (hit[2].to(self.device), hit[3])
             if len(self._plan_cache) > 1024:
                 self._plan_cache.clear()
             self._plan_cache[key] = hit
         return hit
+
+    @staticmethod
+    def _baked_plan(bits_rows: tuple, C: int, tier: Optional[str]) -> tuple:
+        """The baked route's (kind, threads, operand, 1) on the CPU: the
+        first of K1, K5 and the pipeline that ``tier`` allows and whose
+        plan fits (:meth:`plan_for`)."""
+        if tier in (None, "fused"):
+            plan = fused_plan(bits_rows, C)
+            if plan is not None:
+                return ("fused",) + plan + (1,)
+            if tier == "fused":
+                raise ValueError("no fused-kernel plan fits this matrix")
+        if tier in (None, "split"):
+            plan = fused_split_plan(bits_rows, C // 8, len(bits_rows) // 8)
+            if plan is not None:
+                threads, _, prog = plan
+                return ("split", threads, prog, 1)
+            if tier == "split":
+                raise ValueError("no split-kernel plan fits this matrix")
+        return ("pipeline",) + sparse_plan(bits_rows, C) + (1,)
 
     # -- words entries (device-resident) ----------------------------------
 
@@ -358,6 +381,9 @@ class DeviceCodec:
             out = mxu_encode_words_bits(prog, words, R, K)
         elif kind == "fused":
             out = fused_encode_words(prog, words, R, threads, lane_tl(TWp))
+        elif kind == "split":
+            out = fused_split_encode_words(prog, words, R, threads,
+                                           lane_tl(TWp))
         elif kind == "panel":
             # Pack and unpack share the blocked TL by construction.
             W8 = TWp // 64
@@ -387,10 +413,10 @@ class DeviceCodec:
                 "entries (matmul_words_bytesliced / matmul_stripes), not "
                 "the interleaved words entry"
             )
-        if tier == "fused":
+        if tier in ("fused", "split"):
             raise ValueError(
                 "the interleaved GF(2^16) entry runs K10 -> K4 -> K10 on "
-                "the baked route; tier 'fused' is a byte-rows kernel"
+                f"the baked route; tier {tier!r} is a byte-rows kernel"
             )
         kind, threads, prog, G = self.plan_for(
             M, "pipeline" if route == "baked" else None)

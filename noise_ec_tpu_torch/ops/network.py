@@ -25,7 +25,11 @@ shared memory whatever the input width.
 A wide network is cut into panels instead (:func:`compile_panels`): each
 (row block, K block) panel is factored and slotted on its own, and the
 panels are concatenated into one :class:`PanelProgram` for the panel
-kernel (ops/panel.py).
+kernel (ops/panel.py). A network too big for the fused kernel's slots is
+cut into K slices for the K-sliced fused kernel (:func:`compile_split`):
+one slotted program per slice of ksl input rows, concatenated into one
+:class:`SplitProgram` whose phases share one slot region beside the
+parity accumulators (ops/fused.py).
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from noise_ec_tpu_torch.ops.xor_factor import (
     factored_cost,
     paar_factor_capped,
     panel_raw_costs,
+    split_bits_rows_ksl,
     split_bits_rows_panels,
 )
 
@@ -58,8 +63,10 @@ def _i32(x, shape=None) -> torch.Tensor:
     return t.reshape(shape) if shape is not None else t
 
 
-def fits(prog: "XorProgram", threads: int) -> bool:
-    """True when ``prog``'s slots for ``threads`` threads fit one block."""
+def fits(prog: "XorProgram | SplitProgram", threads: int) -> bool:
+    """True when ``prog``'s slots for ``threads`` threads fit one block:
+    an :class:`XorProgram`'s, or a :class:`SplitProgram`'s accumulators
+    and the one phase region every phase reuses."""
     return prog.n_slots * threads * 4 <= SMEM_BYTES
 
 
@@ -304,3 +311,96 @@ def eval_panels(prog: PanelProgram, planes: torch.Tensor,
                 for e in range(e0, e1):
                     out[pr * RB + r] ^= slots[terms[e]]
     return out
+
+
+@dataclass(frozen=True)
+class SplitProgram:
+    """A network over 8k input planes cut into P = ceil(k/ksl) phases of
+    ksl input rows (``split_bits_rows_ksl``), each phase its own program
+    compiled with ``inputs_in_slots=True`` over 8·ksl planes.
+
+    Slots ``[0, 8r)`` hold the parity accumulators; every phase's slots
+    follow from ``8r`` on, in one region that each phase reuses, so
+    ``n_slots = 8r + max(phase n_slots)``. Phase p's ops are ``ops[
+    op_ptr[p]:op_ptr[p+1]]``, its output row q is CSR row ``p * 8r + q``
+    of (``row_ptr``, ``row_terms``), and its local input plane c (plane
+    ``p*8*ksl + c`` of the whole input) sits in slot ``in_slot[p*8*ksl +
+    c]`` (-1 for a plane no term reads, and for the planes past row k of
+    a short last slice). Every code in these tensors is already offset by
+    8r. ``phases`` keeps the per-phase programs, unshifted, for the plain
+    evaluation.
+    """
+
+    ops: torch.Tensor  # (n_ops, 3) int32: dst slot, slot a, slot b
+    op_ptr: torch.Tensor  # (P + 1,) int32
+    row_ptr: torch.Tensor  # (P * 8r + 1,) int32
+    row_terms: torch.Tensor  # (nnz,) int32 slots
+    in_slot: torch.Tensor  # (P * 8 * ksl,) int32
+    phases: tuple  # P XorPrograms on the CPU
+    n_inputs: int  # 8k
+    n_rows: int  # 8r
+    ksl: int
+    n_slots: int
+    cost: int  # two-input XORs: the phases' costs + (P - 1) * 8r accumulates
+
+    @property
+    def P(self) -> int:
+        return len(self.phases)
+
+    def to(self, device) -> "SplitProgram":
+        """The same program with its kernel tensors on ``device``."""
+        return dataclasses.replace(
+            self, ops=self.ops.to(device), op_ptr=self.op_ptr.to(device),
+            row_ptr=self.row_ptr.to(device),
+            row_terms=self.row_terms.to(device),
+            in_slot=self.in_slot.to(device),
+        )
+
+
+def compile_split(bits_rows: tuple, k: int, ksl: int) -> SplitProgram:
+    """Cut ``bits_rows`` (8r rows over 8k planes) into ksl-row phases,
+    compile each over 8·ksl planes and concatenate them into one
+    :class:`SplitProgram` on the CPU (class doc)."""
+    R = len(bits_rows)
+    phases = tuple(compile_network(net, 8 * ksl)
+                   for net in split_bits_rows_ksl(bits_rows, k, 8, ksl))
+    ops: list = []
+    op_ptr = [0]
+    row_ptr = [0]
+    terms: list = []
+    in_slot: list = []
+    for prog in phases:
+        ops.extend((t + R, a + R, b + R) for t, a, b in prog.ops.tolist())
+        op_ptr.append(len(ops))
+        base = len(terms)
+        terms.extend(c + R for c in prog.row_terms.tolist())
+        row_ptr.extend(base + x for x in prog.row_ptr.tolist()[1:])
+        in_slot.extend(s + R if s >= 0 else -1 for s in prog.in_slot.tolist())
+    return SplitProgram(
+        ops=_i32(ops, (len(ops), 3)), op_ptr=_i32(op_ptr),
+        row_ptr=_i32(row_ptr), row_terms=_i32(terms), in_slot=_i32(in_slot),
+        phases=phases, n_inputs=8 * k, n_rows=R, ksl=ksl,
+        n_slots=R + max(p.n_slots for p in phases),
+        cost=sum(p.cost for p in phases) + (len(phases) - 1) * R,
+    )
+
+
+def eval_split(prog: SplitProgram, planes: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch evaluation of ``prog`` over ``planes`` (8k, ...) ->
+    (8r, ...): :func:`eval_program` per phase over its slice of planes
+    (zero-padded to 8·ksl for a short last slice), each phase's rows
+    XORed into the accumulators."""
+    if planes.shape[0] != prog.n_inputs:
+        raise ValueError(
+            f"program takes {prog.n_inputs} planes, got {planes.shape[0]}"
+        )
+    width = 8 * prog.ksl
+    acc = None
+    for p, phase in enumerate(prog.phases):
+        part = planes[p * width:(p + 1) * width]
+        if part.shape[0] < width:
+            part = torch.cat([part, part.new_zeros(
+                (width - part.shape[0],) + part.shape[1:])])
+        rows = eval_program(phase, part)
+        acc = rows if acc is None else acc ^ rows
+    return acc

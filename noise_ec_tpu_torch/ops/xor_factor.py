@@ -233,6 +233,24 @@ def split_bits_rows_panels(
     return tuple(out)
 
 
+def split_bits_rows_ksl(bits_rows: tuple, k: int, m: int, ksl: int) -> tuple:
+    """Partition the (r*m)-row network into ceil(k/ksl) sub-networks by
+    contiguous ksl-row input slices (the K-sliced fused kernel's phases);
+    sub-network p's column ids are re-indexed to its local [0, ksl*m)
+    plane range (a short final slice simply has columns no term
+    references). A copy of ``pallas_fused.split_bits_rows_ksl``."""
+    P = -(-k // ksl)
+    out = []
+    for p in range(P):
+        lo, hi = p * ksl * m, min((p + 1) * ksl * m, k * m)
+        out.append(
+            tuple(
+                tuple(c - lo for c in row if lo <= c < hi) for row in bits_rows
+            )
+        )
+    return tuple(out)
+
+
 def panel_raw_costs(panels) -> tuple[int, int]:
     """(total, max_single) raw XOR cost over a panel grid — the
     planner's cheap pre-factoring score inputs."""

@@ -291,6 +291,8 @@ def _is_reference(name: str) -> bool:
 def test_no_jax_or_reference_imports_in_the_port_source():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
+    assert {PORT / "parallel" / "batch.py",
+            PORT / "parallel" / "streaming.py"} <= set(files)
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
@@ -308,6 +310,8 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "noise_ec_tpu_torch." + ".".join(p.relative_to(PORT).with_suffix("").parts)
         for p in PORT.rglob("*.py") if p.name != "__init__.py"
     )
+    assert {"noise_ec_tpu_torch.parallel.batch",
+            "noise_ec_tpu_torch.parallel.streaming"} <= set(mods)
     code = (
         "import sys, importlib\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -88,8 +88,10 @@ def test_planner_picks_the_largest_block_that_fits(k, r, threads, slots):
 
 def test_planner_caps_temps_then_gives_up(monkeypatch):
     """With less shared memory the planner first caps the temporaries
-    (accepting at most 1.25x the full XOR count), then returns no plan,
-    and the codec routes the matrix to the pipeline."""
+    (accepting at most 1.25x the full XOR count), then returns no plan;
+    the codec then takes the K-sliced kernel K5 where one phase's slots
+    fit (RS(17,3) under a budget K1 cannot meet), and routes a matrix
+    that neither kernel holds to the pipeline."""
     import noise_ec_tpu_torch.ops.fused as fused
     import noise_ec_tpu_torch.ops.network as network
 
@@ -101,21 +103,36 @@ def test_planner_caps_temps_then_gives_up(monkeypatch):
         monkeypatch.setattr(network, "SMEM_BYTES", nbytes)
         monkeypatch.setattr(fused, "SMEM_BYTES", nbytes)
         fused.fused_plan.cache_clear()
+        fused.fused_split_plan.cache_clear()
 
     try:
         budget(200 * 32 * 4)  # 200 slots at one warp: fits only with a cap
         threads, prog = fused.fused_plan(br, 80)
         assert threads == 32 and prog.n_slots <= 200 < full.n_slots
         assert full.cost < prog.cost <= 1.25 * full.cost
+        # RS(17,3) in 180 slots a thread at one warp: K1's cap would cost
+        # more than 1.25x, while K5 at ksl = 8 needs 172 (24 accumulators
+        # and one phase of 8 rows).
+        budget(180 * 32 * 4)
+        M17 = _parity(17, 3)
+        br17 = _REF.bits_rows_for(M17)
+        assert fused.fused_plan(br17, 136) is None
+        kind, threads, prog, G = DeviceCodec(device="cpu").plan_for(M17)
+        assert (kind, threads, prog.ksl, prog.n_slots, G) == (
+            "split", 32, 8, 172, 1)
         budget(100 * 32 * 4)  # 20 temps over 80 inputs cost far too much
         assert fused.fused_plan(br, 80) is None
+        assert fused.fused_split_plan(br, 10, 4) is None
         codec = DeviceCodec(device="cpu")
         kind, threads, prog, G = codec.plan_for(M)
         assert kind == "pipeline" and prog.in_slot is None and G == 1
         with pytest.raises(ValueError, match="no fused-kernel plan"):
             codec.plan_for(M, "fused")
+        with pytest.raises(ValueError, match="no split-kernel plan"):
+            codec.plan_for(M, "split")
     finally:
         fused.fused_plan.cache_clear()
+        fused.fused_split_plan.cache_clear()
 
 
 def test_fused_rejects_programs_it_cannot_run(rng):
