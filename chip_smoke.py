@@ -21,6 +21,11 @@ before printing any result. Phases (one JSON line each):
    on RS(50,20)'s parity and its (20, 50) recovery matrix (each also
    against the NumPy field arithmetic on a 64 KiB slice), and RS(10,4)
    forced onto K5, also against K1;
+   dense_kernels — the sublane pack and unpack K9 at RS(10,4)'s 1 MiB
+   shards and at TW = 3,072 (TL = 384), and the dense-mask products K11
+   and K12 on RS(10,4)'s (32, 80) select masks, random-word masks of that
+   shape and RS(50,20)'s (160, 400) masks, each against its plain version
+   and K12 also against K11 and the sparse K4;
 3. main_path — ``ReedSolomon(10, 4)`` on the card: split a 10 MiB object,
    encode, verify, lose shards {0, 5, 11}, reconstruct, join; a batch of
    five 1 MiB stripes through the coalescer; RS(4,2) on a 64 KiB message;
@@ -44,7 +49,15 @@ before printing any result. Phases (one JSON line each):
    both ways); RS(17,3) on 272 MiB in 17 MiB chunks, decoded at 3 (K1);
    64 MiB in 4 MiB chunks at RS(50,20) with a short tail, through
    ``decode_stream``; and ``ReedSolomon(30, 10, field="gf65536")`` on a
-   30 MiB object, encode and a 10-erasure reconstruct (K5);
+   30 MiB object, encode and a 10-erasure reconstruct (K5). Then the
+   dense-mask ops API (RS(10,4) parity of 1 MiB shards through K9 -> K11
+   or K12 -> K9); the port's hardware check
+   (``noise_ec_tpu_torch.tools.hwcheck``, its 51 checks on the card, which
+   run K9 on its tier 3); and ``FEC(10, 14)`` with 1 MiB shares on both
+   decode routes: encode, then decode of the first k shares, of all 14
+   with one wholly corrupt (the device route's decode1 fold), and of all
+   14 with scattered corruption (the syndrome), and GF(2^16) ``FEC(10,
+   14)`` with one wholly corrupt share (the byte-sliced fold);
 4. times — CUDA-event medians with the L2 cache flushed between launches:
    each kernel and its plain version beside the least time the card could
    take, the codec's RS(10,4) encode rate (device-resident words and end
@@ -61,7 +74,12 @@ before printing any result. Phases (one JSON line each):
    through the forced pipeline; K1 at its plan against K5 forced on
    RS(30,10) and RS(40,12); stream encode and decode GB/s from host bytes
    at RS(17,3) and RS(50,20) with the device's share of the wall time;
-   and the bounds of the kernels still to port.
+   dense_times — K9, K11 and K12 beside their bounds and plain versions
+   at RS(10,4)'s shapes, and K11 on RS(50,20)'s masks;
+   fec_times — the FEC decode p50 per case and route on the host clock,
+   beside the CUDA-event time of the device route's product.
+
+Each phase's line carries its seconds.
 
 Then a ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
 ``--panel-sweep`` adds, before those two lines, the panel matmul's time
@@ -309,11 +327,11 @@ def rs_200_56_parity():
     return gf, generator_matrix(gf, 200, 256, "cauchy")[200:]
 
 
-def phase_panel_kernels(rng, device, results: dict) -> dict:
+def phase_panel_kernels(rng, device, results: dict, codec) -> dict:
     """K6 and K7 at RS(200,56), 1 MiB shards, against their plain versions;
-    K7 in one launch and in the reference's G = 3 sub-launches."""
+    K7 in one launch and in the reference's G = 3 sub-launches. ``codec``
+    is the shared GF(2^8) codec, which keeps the plan."""
     from noise_ec_tpu_torch.matrix import host_matvec
-    from noise_ec_tpu_torch.ops.dispatch import DeviceCodec
     from noise_ec_tpu_torch.ops.pack import (
         blocked_lane_tl,
         pack_words_lanes_blocked,
@@ -328,7 +346,6 @@ def phase_panel_kernels(rng, device, results: dict) -> dict:
     )
 
     gf, M = rs_200_56_parity()
-    codec = DeviceCodec(device=device)
     check(codec.route_for(M) == "panel", "RS(200,56) routes panel")
     t0 = time.monotonic()
     kind, threads, prog, G = codec.plan_for(M)
@@ -501,13 +518,13 @@ def rs_50_20():
                                         list(SPLIT_LOST))
 
 
-def phase_split_kernels(rng, device, results: dict) -> dict:
+def phase_split_kernels(rng, device, results: dict, codec) -> dict:
     """K5 against its plain version on the card, byte for byte, at 1 MiB
     shards: RS(50,20)'s parity and (20, 50) recovery matrix, each also
     against the NumPy field arithmetic on a 64 KiB slice, and RS(10,4)
-    forced onto K5, also against K1."""
+    forced onto K5, also against K1. ``codec`` is the shared GF(2^8)
+    codec."""
     from noise_ec_tpu_torch.matrix import generator_matrix, host_matvec
-    from noise_ec_tpu_torch.ops.dispatch import DeviceCodec
     from noise_ec_tpu_torch.ops.fused import (
         fused_encode_words,
         fused_split_encode_words,
@@ -515,7 +532,6 @@ def phase_split_kernels(rng, device, results: dict) -> dict:
     )
 
     gf, G, R = rs_50_20()
-    codec = DeviceCodec(device=device)
     report = {"phase": "split_kernels"}
     err = 0
     for name, M, tier in (
@@ -547,6 +563,110 @@ def phase_split_kernels(rng, device, results: dict) -> dict:
                         "equal": True}
         err = max(err, e)
     results["fused_split"]["max_abs_err"] = err
+    return report
+
+# The dense-mask kernels' plane width at 1 MiB shards: the sublane layout's
+# TW / 8 words a plane (RS(10,4): 80 planes in, 32 out).
+W_PLANE = TW // 8
+# Scattered corruption for the FEC decodes: this many byte columns wrong in
+# one share each, and this many more in two shares each (within the
+# radius of 14 shares, two).
+FEC_SCATTER, FEC_SCATTER2 = 2048, 8
+# Warm decodes timed per FEC case and route.
+FEC_REPS = 5
+
+
+def dense_masks(gf, k: int, r: int):
+    """RS(k,r)'s parity rows and their (8r, 8k) int32 select masks."""
+    from noise_ec_tpu_torch.gf import expand_generator_masks
+    from noise_ec_tpu_torch.matrix import generator_matrix
+
+    M = generator_matrix(gf, k, k + r, "cauchy")[k:]
+    return M, expand_generator_masks(gf, M)
+
+
+def dense_bound(R: int, C: int, W: int) -> tuple[float, str]:
+    """K11/K12's bound: the masks, the C input and R output planes of W
+    words moved once; one logic op per mask word and plane word
+    (``acc ^= m & p`` is a single LOP3)."""
+    return bound((R * C + C * W + R * W) * 4, R * C * W)
+
+
+def phase_dense_kernels(rng, device, results: dict) -> dict:
+    """K9, K11 and K12 against their plain versions on the card, byte for
+    byte: K9 pack and unpack at RS(10,4)'s 1 MiB shards (10 rows, TW =
+    262,144) and at TW = 3,072 (TL = 384), with their round trips; K11 and
+    K12 on RS(10,4)'s (32, 80) select masks, on random words of that
+    shape and on RS(50,20)'s (160, 400) masks, over 32,768-word planes,
+    each against the other; K12 also against the sparse K4 on RS(10,4)."""
+    from noise_ec_tpu_torch.gf import GF256
+    from noise_ec_tpu_torch.ops.gf2mm import (
+        bits_to_rows,
+        gf2_matmul_dense,
+        gf2_matmul_dense_plain,
+        gf2_matmul_dense_tiled,
+        gf2_matmul_dense_tiled_plain,
+        gf2_matmul_sparse,
+        sparse_plan,
+    )
+    from noise_ec_tpu_torch.ops.pack import (
+        pack_words_sublane,
+        pack_words_sublane_plain,
+        tile_lanes,
+        unpack_words_sublane,
+        unpack_words_sublane_plain,
+    )
+
+    report = {"phase": "dense_kernels"}
+    for tw in (TW, 3072):
+        words = rand_words(rng, (10, tw), device)
+        planes = pack_words_sublane(words)
+        err_p = max_abs_err(planes, pack_words_sublane_plain(words))
+        back = unpack_words_sublane(planes)
+        err_u = max_abs_err(back, unpack_words_sublane_plain(planes))
+        torch.cuda.synchronize()
+        check(err_p == 0 and err_u == 0, f"K9 pack/unpack TW={tw} vs plain")
+        check(torch.equal(back, words), f"K9 round trip TW={tw}")
+        report[f"k9_tw{tw}"] = {"tl": tile_lanes(tw), "equal": True}
+        for name, err in (("pack_sublane", err_p), ("unpack_sublane", err_u)):
+            results[name]["max_abs_err"] = max(results[name]["max_abs_err"],
+                                               err)
+
+    gf = GF256()
+    M10, masks10 = dense_masks(gf, 10, 4)
+    cases = {
+        "RS(10,4) select masks (32,80)": masks10,
+        "random-word masks (32,80)": rng.integers(
+            0, 1 << 32, size=(32, 80), dtype=np.uint64).astype(
+                np.uint32).view(np.int32),
+        "RS(50,20) select masks (160,400)": dense_masks(gf, 50, 20)[1],
+    }
+    for name, masks in cases.items():
+        m = torch.from_numpy(masks).to(device)
+        C = masks.shape[1]
+        planes = rand_words(rng, (C, W_PLANE), device)
+        tiled = planes.reshape(C, 8, W_PLANE // 8)
+        out = gf2_matmul_dense(m, planes)
+        e11 = max_abs_err(out, gf2_matmul_dense_plain(m, planes))
+        out_t = gf2_matmul_dense_tiled(m, tiled)
+        e12 = max_abs_err(out_t, gf2_matmul_dense_tiled_plain(m, tiled))
+        torch.cuda.synchronize()
+        check(e11 == 0, f"K11 {name} vs plain")
+        check(e12 == 0, f"K12 {name} vs plain")
+        check(torch.equal(out_t.reshape(out.shape), out),
+              f"K12 vs K11 {name}")
+        entry = {"masks": list(masks.shape), "planes": list(planes.shape),
+                 "equal": True}
+        if masks is masks10:
+            threads, prog = sparse_plan(bits_to_rows(masks != 0), C)
+            sparse = gf2_matmul_sparse(prog.to(device), tiled, threads)
+            check(torch.equal(sparse, out_t), f"K12 vs K4 {name}")
+            entry["equal_to_k4"] = True
+        report[name] = entry
+        results["gf2mm_dense"]["max_abs_err"] = max(
+            results["gf2mm_dense"]["max_abs_err"], e11)
+        results["gf2mm_dense_tiled"]["max_abs_err"] = max(
+            results["gf2mm_dense_tiled"]["max_abs_err"], e12)
     return report
 
 
@@ -791,7 +911,147 @@ def main_path_gf16(rng, run_path, out: dict) -> dict:
             "mxu_256_stripe_bytes": SHARD}
 
 
-def phase_main_path(rng) -> dict:
+def main_path_dense_masks(rng, run_path, out: dict) -> dict:
+    """The dense-mask ops API on a runtime matrix, as ``main_path``: RS(10,4)
+    parity of 1 MiB shards as K9 pack -> K11 (and K12 on the tiled view of
+    the same planes) with the expanded select masks -> K9 unpack, both
+    against the NumPy field arithmetic."""
+    from noise_ec_tpu_torch.gf import GF256
+    from noise_ec_tpu_torch.matrix import host_matvec
+    from noise_ec_tpu_torch.ops.gf2mm import (
+        gf2_matmul_dense,
+        gf2_matmul_dense_tiled,
+    )
+    from noise_ec_tpu_torch.ops.pack import (
+        pack_words_sublane,
+        unpack_words_sublane,
+    )
+
+    gf = GF256()
+    M, masks = dense_masks(gf, 10, 4)
+    data = rng.integers(0, 256, size=(10, SHARD), dtype=np.uint8)
+    words = torch.from_numpy(data.view(np.int32)).cuda()
+    m = torch.from_numpy(masks).cuda()
+
+    def path():
+        flat = pack_words_sublane(words).reshape(80, W_PLANE)
+        p11 = gf2_matmul_dense(m, flat)
+        p12 = gf2_matmul_dense_tiled(m, flat.reshape(80, 8, W_PLANE // 8))
+        return tuple(unpack_words_sublane(p.reshape(4, 8, W_PLANE))
+                     for p in (p11, p12))
+
+    (p11, p12), out["dense_masks"] = run_path(path)
+    want = host_matvec(gf, M, data)
+    for name, got in (("K11", p11), ("K12", p12)):
+        check(np.array_equal(got.cpu().numpy().view(np.uint8), want),
+              f"dense-mask RS(10,4) parity through {name} vs host_matvec")
+    for name in ("pack_sublane", "gf2mm_dense", "gf2mm_dense_tiled",
+                 "unpack_sublane"):
+        check(out["dense_masks"][name] > 0, f"{name} launched on dense_masks")
+    return {"dense_masks": {"matrix": "RS(10,4) parity", "shard_bytes": SHARD,
+                            "masks": list(masks.shape)}}
+
+
+def main_path_hwcheck(run_path, out: dict, codecs: dict) -> dict:
+    """The port's hardware check (``noise_ec_tpu_torch.tools.hwcheck``), as
+    ``main_path``, on the shared codecs (their plans are reused): all 51
+    checks must pass, and the sublane kernels K9 must have run (tier 3)."""
+    from noise_ec_tpu_torch.tools import hwcheck
+
+    report, out["hwcheck"] = run_path(
+        lambda: hwcheck.run("cuda", codecs=codecs))
+    failed = [c["check"] for c in report["checks"] if not c["ok"]]
+    check(not failed, f"hwcheck: failed {failed}")
+    check(len(report["checks"]) == 51, "hwcheck ran its 51 checks")
+    for name in ("pack_sublane", "unpack_sublane", "pack_lanes",
+                 "unpack_lanes", "gf2mm_sparse", "fused_encode",
+                 "fused_split", "gf2mm_panel", "mxu_gf2"):
+        check(out["hwcheck"][name] > 0, f"{name} launched on hwcheck")
+    return {"hwcheck": {key: report[key]
+                        for key in ("device", "ok", "elapsed_s")}
+            | {"checks": len(report["checks"])}}
+
+
+def fec_cases(rng, shares: list, k: int) -> dict:
+    """The FEC decode cases over one codeword's ``shares``: the first k in
+    order (the systematic shortcut), all of them with share 1 wholly
+    corrupt, and all of them with FEC_SCATTER byte columns wrong in one
+    share and FEC_SCATTER2 in two (the syndrome path)."""
+    from noise_ec_tpu_torch.codec import Share
+
+    rows = np.stack([np.frombuffer(s.data, np.uint8) for s in shares])
+    whole = rows.copy()
+    whole[1] ^= 0x3C
+    scattered = rows.copy()
+    n, S = rows.shape
+    cols = rng.choice(S, size=FEC_SCATTER + FEC_SCATTER2, replace=False)
+    one = rng.integers(0, n, size=cols.size)
+    scattered[one, cols] ^= rng.integers(1, 256, size=cols.size,
+                                         dtype=np.uint8)
+    two = (one[:FEC_SCATTER2] + rng.integers(1, n, size=FEC_SCATTER2)) % n
+    scattered[two, cols[:FEC_SCATTER2]] ^= rng.integers(
+        1, 256, size=FEC_SCATTER2, dtype=np.uint8)
+
+    def as_shares(a):
+        return [Share(i, a[i].tobytes()) for i in range(n)]
+
+    return {"in_order_k": shares[:k], "whole_share": as_shares(whole),
+            "scattered": as_shares(scattered)}
+
+
+def main_path_fec(rng, run_path, out: dict) -> dict:
+    """The infectious codec, as ``main_path``: ``FEC(10, 14)`` with 1 MiB
+    shares (a 10 MiB payload) on ``bw_route="device"`` and on "host":
+    ``encode_shares``, then ``decode`` of each :func:`fec_cases` case; and
+    GF(2^16) ``FEC(10, 14)`` on the device route with share 1 wholly
+    corrupt (the byte-sliced fold). Every decode returns the payload byte
+    for byte; the device route's corrupted decodes run on the card and the
+    host route's decodes launch nothing."""
+    from noise_ec_tpu_torch.codec import FEC
+
+    payload = rng.integers(0, 256, size=10 * SHARD, dtype=np.uint8).tobytes()
+    report = {}
+    cases = None
+    for route in ("device", "host"):
+        fec = FEC(10, 14, bw_route=route)
+        shares, out[f"fec_{route}_encode"] = run_path(
+            lambda: fec.encode_shares(payload))
+        check(out[f"fec_{route}_encode"]["fused_encode"] > 0,
+              f"K1 launched on fec_{route}_encode")
+        if cases is None:
+            cases = fec_cases(rng, shares, 10)
+        for name, case in cases.items():
+            got, out[f"fec_{route}_{name}"] = run_path(
+                lambda: fec.decode(case))
+            check(got == payload, f"FEC {route} {name} returns the payload")
+        report[route] = dict(fec.stats)
+    check(report["device"] == report["host"] == {
+        "fast_decodes": 1, "bw_decodes": 2, "subset_decodes": 0},
+        "FEC stats on both routes")
+    for name in cases:
+        check(sum(out[f"fec_host_{name}"].values()) == 0,
+              f"fec_host_{name} launches nothing")
+    check(sum(out["fec_device_in_order_k"].values()) == 0,
+          "the systematic shortcut launches nothing")
+    for name in ("whole_share", "scattered"):
+        check(out[f"fec_device_{name}"]["fused_encode"] > 0,
+              f"K1 launched on fec_device_{name}")
+
+    fec16 = FEC(10, 14, field="gf65536", bw_route="device")
+    shares16 = fec16.encode_shares(payload)
+    case16 = fec_cases(rng, shares16, 10)["whole_share"]
+    got16, out["fec16_device_whole_share"] = run_path(
+        lambda: fec16.decode(case16))
+    check(got16 == payload, "GF(2^16) FEC whole_share returns the payload")
+    check(out["fec16_device_whole_share"]["fused_encode"] > 0,
+          "K1 launched on fec16_device_whole_share")
+    report["gf65536_device"] = dict(fec16.stats)
+    return {"fec": {"payload_bytes": len(payload), "shares": 14,
+                    "scatter_columns": [FEC_SCATTER, FEC_SCATTER2],
+                    "stats": report}}
+
+
+def phase_main_path(rng, codecs: dict) -> dict:
     from noise_ec_tpu_torch.codec import ReedSolomon
     from noise_ec_tpu_torch.matrix import host_matvec, reconstruction_matrix
     from noise_ec_tpu_torch.ops import launch_counts, reset_launch_counts
@@ -928,10 +1188,14 @@ def phase_main_path(rng) -> dict:
           "RS(200,56) runs no fused-kernel launch")
     gf16_report = main_path_gf16(rng, run_path, out)
     stream_report = main_path_streams(rng, run_path, out)
+    dense_report = main_path_dense_masks(rng, run_path, out)
+    hwcheck_report = main_path_hwcheck(run_path, out, codecs)
+    fec_report = main_path_fec(rng, run_path, out)
     launches = {name: sum(c[name] for c in out.values())
                 for name in out["pipeline"]}
     return {"phase": "main_path", "launches": launches, "by_path": out,
-            **gf16_report, **stream_report,
+            **gf16_report, **stream_report, **dense_report,
+            **hwcheck_report, **fec_report,
             "rs_10_4_object_bytes": len(obj), "erasures": [0, 5, 11],
             "batch": len(batch), "rs_4_2_message_bytes": len(small),
             "rs_200_56_object_bytes": len(wide_obj),
@@ -1487,19 +1751,8 @@ def phase_split_times(rng, device, results: dict) -> dict:
             "decode_device_share": n * dec_dev_ms / 1e3 / min(dec_s),
         }
         del chunks, rows, data
-    # Bounds of the kernels still to port, at the reference's shapes for
-    # RS(10,4) at 1 MiB shards: K9 moves K2's and K3's bytes; K11 and K12
-    # take the (32, 80) mask matrix over 80 planes of 32,768 words, an AND
-    # and an XOR per mask bit and word.
-    W = TW // 8
-    unported = {
-        "K9_pack": bound(20 * SHARD, 10 * groups * TRANSPOSE_OPS),
-        "K9_unpack": bound(8 * SHARD, 4 * groups * TRANSPOSE_OPS),
-        "K11_K12": bound((32 * 80 + 80 * W + 32 * W) * 4, 2 * 32 * 80 * W),
-    }
     return {
         "phase": "split_times", "reps": REPS, "stream_reps": STREAM_REPS,
-        "unported_bounds_ms": unported,
         "rs_50_20_recovery_k5": recovery,
         "rs_50_20_matmul_words_ms": words_ms,
         "rs_50_20_matmul_words_gbps": 50 * SHARD / words_ms / 1e6,
@@ -1507,6 +1760,138 @@ def phase_split_times(rng, device, results: dict) -> dict:
         "rs_50_20_matmul_words_bound_ms": b_ms,
         "k1_vs_k5": k1_vs_k5, "streams": streams,
     }
+
+
+def phase_dense_times(rng, device, results: dict) -> dict:
+    """K9 at RS(10,4), 1 MiB shards (pack 10 rows, unpack the 4 parity
+    rows), and K11 and K12 on RS(10,4)'s (32, 80) masks over 32,768-word
+    planes, each beside its bound and its plain version; K11 also on
+    RS(50,20)'s (160, 400) masks, the wide runtime-matrix use."""
+    from noise_ec_tpu_torch.gf import GF256
+    from noise_ec_tpu_torch.ops.gf2mm import (
+        gf2_matmul_dense,
+        gf2_matmul_dense_plain,
+        gf2_matmul_dense_tiled,
+        gf2_matmul_dense_tiled_plain,
+    )
+    from noise_ec_tpu_torch.ops.pack import (
+        pack_words_sublane,
+        pack_words_sublane_plain,
+        unpack_words_sublane,
+        unpack_words_sublane_plain,
+    )
+
+    timer = Timer(device)
+    groups = TW // 8
+    words = rand_words(rng, (10, TW), device)
+    planes = pack_words_sublane(words)
+    parity_planes = planes[:4].contiguous()
+    gf = GF256()
+    m = torch.from_numpy(dense_masks(gf, 10, 4)[1]).to(device)
+    flat = planes.reshape(80, W_PLANE)
+    tiled = flat.reshape(80, 8, W_PLANE // 8)
+    cases = {
+        "pack_sublane": (
+            lambda: pack_words_sublane(words),
+            lambda: pack_words_sublane_plain(words),
+            bound(20 * SHARD, 10 * groups * TRANSPOSE_OPS)),
+        "unpack_sublane": (
+            lambda: unpack_words_sublane(parity_planes),
+            lambda: unpack_words_sublane_plain(parity_planes),
+            bound(8 * SHARD, 4 * groups * TRANSPOSE_OPS)),
+        "gf2mm_dense": (
+            lambda: gf2_matmul_dense(m, flat),
+            lambda: gf2_matmul_dense_plain(m, flat),
+            dense_bound(32, 80, W_PLANE)),
+        "gf2mm_dense_tiled": (
+            lambda: gf2_matmul_dense_tiled(m, tiled),
+            lambda: gf2_matmul_dense_tiled_plain(m, tiled),
+            dense_bound(32, 80, W_PLANE)),
+    }
+    for name, (kernel, plain, (b_ms, b_by)) in cases.items():
+        results[name].update(
+            ms=timer.median_ms(kernel), plain_ms=timer.median_ms(plain),
+            bound_ms=b_ms, bound_by=b_by,
+        )
+    m50 = torch.from_numpy(dense_masks(gf, 50, 20)[1]).to(device)
+    planes50 = rand_words(rng, (400, W_PLANE), device)
+    b_ms, b_by = dense_bound(160, 400, W_PLANE)
+    wide = {"ms": timer.median_ms(lambda: gf2_matmul_dense(m50, planes50)),
+            "plain_ms": timer.median_ms(
+                lambda: gf2_matmul_dense_plain(m50, planes50)),
+            "bound_ms": b_ms, "bound_by": b_by}
+    return {"phase": "dense_times", "reps": REPS,
+            "gf2mm_dense_rs_50_20_masks": wide}
+
+
+def phase_fec_times(rng, device) -> dict:
+    """FEC(10, 14) decode at 1 MiB shares, median of FEC_REPS warm decodes
+    on the host clock, per :func:`fec_cases` case and route, and GF(2^16)
+    FEC(10, 14) with one wholly corrupt share on the device route; beside
+    each device-route case, the CUDA-event time of its product on the
+    card alone, from words already there: the decode1 fold
+    (``decode1_words``, ``decode1_words_bytesliced``) or the [A | I]
+    syndrome."""
+    from noise_ec_tpu_torch.codec import FEC
+    from noise_ec_tpu_torch.ops.pack import pack_u16_bytesliced
+
+    timer = Timer(device)
+    payload = rng.integers(0, 256, size=10 * SHARD, dtype=np.uint8).tobytes()
+
+    def host_p50(fn) -> float:
+        check(fn() == payload, "FEC decode returns the payload")
+        times = []
+        for _ in range(FEC_REPS):
+            t0 = time.perf_counter()
+            got = fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+            check(got == payload, "FEC decode returns the payload")
+        return statistics.median(times)
+
+    fecs = {route: FEC(10, 14, bw_route=route)
+            for route in ("device", "host")}
+    shares = fecs["device"].encode_shares(payload)
+    cases = fec_cases(rng, shares, 10)
+    dev = fecs["device"]._rs._dev
+    A = fecs["device"]._golden.G[10:]  # the basis is the data rows
+    aug = np.concatenate([A, np.eye(4, dtype=np.uint8)], axis=1)
+
+    def device_words(case) -> torch.Tensor:
+        rows = np.stack([np.frombuffer(s.data, np.uint8) for s in case])
+        return torch.from_numpy(rows.view(np.int32)).to(dev.device)
+
+    w_whole = device_words(cases["whole_share"])
+    w_scat = device_words(cases["scattered"])
+    products = {
+        "in_order_k": None,
+        "whole_share": lambda: dev.decode1_words(A, 1, w_whole),
+        "scattered": lambda: dev.matmul_words(aug, w_scat),
+    }
+    out = {}
+    for name, case in cases.items():
+        row = {route: host_p50(lambda: fec.decode(case))
+               for route, fec in fecs.items()}
+        out[name] = {
+            "device_route_p50_ms": row["device"],
+            "host_route_p50_ms": row["host"],
+            "device_product_ms": (timer.median_ms(products[name])
+                                  if products[name] else None),
+        }
+
+    fec16 = FEC(10, 14, field="gf65536", bw_route="device")
+    case16 = fec_cases(rng, fec16.encode_shares(payload), 10)["whole_share"]
+    dev16 = fec16._rs._dev
+    rows16 = np.stack([np.frombuffer(s.data, "<u2") for s in case16])
+    w28 = torch.from_numpy(
+        pack_u16_bytesliced(rows16).view(np.int32)).to(dev16.device)
+    A16 = fec16._golden.G[10:]
+    out["gf65536_whole_share"] = {
+        "device_route_p50_ms": host_p50(lambda: fec16.decode(case16)),
+        "device_product_ms": timer.median_ms(
+            lambda: dev16.decode1_words_bytesliced(A16, 1, w28)),
+    }
+    return {"phase": "fec_times", "reps": FEC_REPS,
+            "payload_bytes": len(payload), "shares": 14, "cases": out}
 
 
 def phase_panel_sweep(rng, device) -> dict:
@@ -1565,6 +1950,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    from noise_ec_tpu_torch.ops.dispatch import DeviceCodec
+
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     rng = np.random.default_rng(args.seed)
@@ -1593,25 +1980,47 @@ def main() -> int:
                            "noise_ec_tpu/ops/pallas_pack.py:453"),
         "fused_split": ("noise_ec_tpu_torch/csrc/fused.cu",
                         "noise_ec_tpu/ops/pallas_fused.py:287"),
+        "pack_sublane": ("noise_ec_tpu_torch/csrc/pack.cu",
+                         "noise_ec_tpu/ops/pallas_pack.py:76"),
+        "unpack_sublane": ("noise_ec_tpu_torch/csrc/pack.cu",
+                           "noise_ec_tpu/ops/pallas_pack.py:81"),
+        "gf2mm_dense": ("noise_ec_tpu_torch/csrc/gf2mm.cu",
+                        "noise_ec_tpu/ops/pallas_gf2mm.py:67"),
+        "gf2mm_dense_tiled": ("noise_ec_tpu_torch/csrc/gf2mm.cu",
+                              "noise_ec_tpu/ops/pallas_gf2mm.py:192"),
     }
     results = {
         name: {"name": name, "route": "cuda", "source": src,
                "replaces": rep, "max_abs_err": 0}
         for name, (src, rep) in sources.items()
     }
-    emit(phase_build())
-    emit(phase_kernels(rng, device, results))
-    emit(phase_panel_kernels(rng, device, results))
-    emit(phase_gf16_kernels(rng, device, results))
-    emit(phase_split_kernels(rng, device, results))
-    main_path = phase_main_path(rng)
-    emit(main_path)
-    emit(phase_times(rng, device, results))
-    emit(phase_panel_times(rng, device, results))
-    emit(phase_gf16_times(rng, device, results))
-    emit(phase_split_times(rng, device, results))
+
+    def timed(phase, *phase_args) -> dict:
+        t0 = time.monotonic()
+        report = phase(*phase_args)
+        report.setdefault("seconds", time.monotonic() - t0)
+        emit(report)
+        return report
+
+    timed(phase_build)
+    # One codec a field for the kernel phases, the main path's hardware
+    # check, and their shared matrices' plans (RS(50,20), RS(200,56)).
+    codecs = {"gf256": DeviceCodec(device=device),
+              "gf65536": DeviceCodec(field="gf65536", device=device)}
+    timed(phase_kernels, rng, device, results)
+    timed(phase_panel_kernels, rng, device, results, codecs["gf256"])
+    timed(phase_gf16_kernels, rng, device, results)
+    timed(phase_split_kernels, rng, device, results, codecs["gf256"])
+    timed(phase_dense_kernels, rng, device, results)
+    main_path = timed(phase_main_path, rng, codecs)
+    timed(phase_times, rng, device, results)
+    timed(phase_panel_times, rng, device, results)
+    timed(phase_gf16_times, rng, device, results)
+    timed(phase_split_times, rng, device, results)
+    timed(phase_dense_times, rng, device, results)
+    timed(phase_fec_times, rng, device)
     if args.panel_sweep:
-        emit(phase_panel_sweep(rng, device))
+        timed(phase_panel_sweep, rng, device)
     kernels = []
     for name, res in results.items():
         res["launches"] = main_path["launches"][name]

@@ -171,6 +171,13 @@ class ReedSolomon:
             return self._dev.matmul_stripes_many(M, Ds)
         return [host_matvec(self.gf, M, D) for D in Ds]
 
+    def device_route_ok(self) -> bool:
+        """Cheap gate for callers choosing a device-resident route up front
+        (FEC's ``bw_route``): True with a device codec. The reference also
+        requires its codec breaker to be closed; the port has no breaker
+        yet (ROADMAP queue 1), and a device failure raises instead."""
+        return self._dev is not None
+
     def _to_sym(self, buf: Buffer, name: str) -> np.ndarray:
         arr = np.frombuffer(buf, dtype=np.uint8) if not isinstance(buf, np.ndarray) else buf
         if arr.dtype == np.uint8 and self.gf.degree == 16:

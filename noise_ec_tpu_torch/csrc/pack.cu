@@ -1,5 +1,5 @@
-// K2/K3: lane pack and unpack between words and tiled bit-planes; K10: the
-// GF(2^16) 16-plane pack and unpack.
+// K2/K3: lane pack and unpack between words and tiled bit-planes; K9 and
+// K10: the sublane-group pack and unpack at 8 and 16 planes.
 //
 // Replaces noise_ec_tpu/ops/pallas_pack.py _pack_lanes_kernel and
 // _unpack_lanes_kernel. Layout contract (the reference's TL-dependent
@@ -13,16 +13,19 @@
 // neighbouring lanes, so every load and store of a warp is one contiguous
 // 128-byte line, and the transpose runs in registers.
 //
-// K10 replaces noise_ec_tpu/ops/pallas_pack.py _pack16_kernel and
-// _unpack16_kernel. Layout contract (the reference's sublane bijection):
-// words (rows, TW), two little-endian u16 symbols a word, viewed as
-// (rows, G16, 16, TL) groups <-> planes (rows, 16, G16 * TL); plane i of row
-// j holds at g*TL + l the 16x16 transpose of the words j, g*16*TL + i'*TL + l
-// for i' = 0..15, i.e. bit i of those 32 symbols. Bound: bytes, as K2/K3
-// (four delta-swap rounds are ~12 integer ops a word). One thread per
-// 16-word group, neighbouring lanes on neighbouring threads, so each load
-// and store of a warp is a contiguous 128-byte line; TL comes as a value,
-// since the reference's TL need not be a power of two.
+// K9 and K10 replace noise_ec_tpu/ops/pallas_pack.py _pack_kernel /
+// _unpack_kernel (the sublane-group pack, the reference's tier 3) and
+// _pack16_kernel / _unpack16_kernel (the GF(2^16) 16-plane pack): one
+// kernel templated on the group N = 8 or 16. Layout contract (the
+// reference's sublane bijection): words (rows, TW) viewed as
+// (rows, TW / (N*TL), N, TL) groups <-> planes (rows, N, TW / N); plane i of
+// row j holds at g*TL + l the NxN transpose of the words j, g*N*TL + i'*TL + l
+// for i' = 0..N-1, i.e. bit i of those symbols (GF(2^8) bytes for N = 8,
+// interleaved u16 halves for N = 16). Bound: bytes, as K2/K3 (three or four
+// delta-swap rounds are ~9-12 integer ops a word). One thread per group,
+// neighbouring lanes on neighbouring threads, so each load and store of a
+// warp is a contiguous 128-byte line; TL comes as a value, since the
+// reference's TL need not be a power of two (384 at TW = 3072 for N = 8).
 #include "common.cuh"
 
 using noise_ec::transpose16;
@@ -76,30 +79,42 @@ __global__ void unpack_lanes_kernel(const uint32_t* __restrict__ in,
   for (int i = 0; i < 8; ++i) dst[i * TL] = w[i];
 }
 
-__global__ void pack16_kernel(const uint32_t* __restrict__ in,
-                              uint32_t* __restrict__ out, long long rows,
-                              long long TW, long long TL) {
-  const long long per_row = TW / 16;
+template <int N>
+__device__ __forceinline__ void transpose_group(uint32_t* w) {
+  if constexpr (N == 8) {
+    transpose8(w);
+  } else {
+    transpose16(w);
+  }
+}
+
+template <int N>
+__global__ void pack_groups_kernel(const uint32_t* __restrict__ in,
+                                   uint32_t* __restrict__ out, long long rows,
+                                   long long TW, long long TL) {
+  const long long per_row = TW / N;
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= rows * per_row) return;
   const long long j = t / per_row;
   const long long q = t - j * per_row;  // g * TL + l
   const long long g = q / TL;
   const long long l = q - g * TL;
-  const uint32_t* src = in + j * TW + g * 16 * TL + l;
-  uint32_t w[16];
+  const uint32_t* src = in + j * TW + g * N * TL + l;
+  uint32_t w[N];
 #pragma unroll
-  for (int i = 0; i < 16; ++i) w[i] = src[i * TL];
-  transpose16(w);
+  for (int i = 0; i < N; ++i) w[i] = src[i * TL];
+  transpose_group<N>(w);
   uint32_t* dst = out + j * TW + q;
 #pragma unroll
-  for (int i = 0; i < 16; ++i) dst[i * per_row] = w[i];
+  for (int i = 0; i < N; ++i) dst[i * per_row] = w[i];
 }
 
-__global__ void unpack16_kernel(const uint32_t* __restrict__ in,
-                                uint32_t* __restrict__ out, long long rows,
-                                long long TW, long long TL) {
-  const long long per_row = TW / 16;
+template <int N>
+__global__ void unpack_groups_kernel(const uint32_t* __restrict__ in,
+                                     uint32_t* __restrict__ out,
+                                     long long rows, long long TW,
+                                     long long TL) {
+  const long long per_row = TW / N;
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= rows * per_row) return;
   const long long j = t / per_row;
@@ -107,13 +122,13 @@ __global__ void unpack16_kernel(const uint32_t* __restrict__ in,
   const long long g = q / TL;
   const long long l = q - g * TL;
   const uint32_t* src = in + j * TW + q;
-  uint32_t w[16];
+  uint32_t w[N];
 #pragma unroll
-  for (int i = 0; i < 16; ++i) w[i] = src[i * per_row];
-  transpose16(w);
-  uint32_t* dst = out + j * TW + g * 16 * TL + l;
+  for (int i = 0; i < N; ++i) w[i] = src[i * per_row];
+  transpose_group<N>(w);
+  uint32_t* dst = out + j * TW + g * N * TL + l;
 #pragma unroll
-  for (int i = 0; i < 16; ++i) dst[i * TL] = w[i];
+  for (int i = 0; i < N; ++i) dst[i * TL] = w[i];
 }
 
 constexpr int kThreads = 256;
@@ -129,12 +144,13 @@ int launch(bool pack, const void* in, void* out, long long rows, long long TW,
   return (int)cudaGetLastError();
 }
 
-int launch16(bool pack, const void* in, void* out, long long rows,
-             long long TW, long long TL, void* stream) {
-  const long long n = rows * (TW / 16);
+template <int N>
+int launch_groups(bool pack, const void* in, void* out, long long rows,
+                  long long TW, long long TL, void* stream) {
+  const long long n = rows * (TW / N);
   if (n == 0) return cudaSuccess;
   const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
-  auto kernel = pack ? pack16_kernel : unpack16_kernel;
+  auto kernel = pack ? &pack_groups_kernel<N> : &unpack_groups_kernel<N>;
   kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)in, (uint32_t*)out, rows, TW, TL);
   return (int)cudaGetLastError();
@@ -156,12 +172,22 @@ extern "C" int ec_unpack_lanes(const void* in, void* out, long long rows,
   return launch(false, in, out, rows, TW, tl_shift, stream);
 }
 
-extern "C" int ec_pack_words16(const void* in, void* out, long long rows,
+extern "C" int ec_pack_groups8(const void* in, void* out, long long rows,
                                long long TW, long long TL, void* stream) {
-  return launch16(true, in, out, rows, TW, TL, stream);
+  return launch_groups<8>(true, in, out, rows, TW, TL, stream);
 }
 
-extern "C" int ec_unpack_words16(const void* in, void* out, long long rows,
+extern "C" int ec_unpack_groups8(const void* in, void* out, long long rows,
                                  long long TW, long long TL, void* stream) {
-  return launch16(false, in, out, rows, TW, TL, stream);
+  return launch_groups<8>(false, in, out, rows, TW, TL, stream);
+}
+
+extern "C" int ec_pack_groups16(const void* in, void* out, long long rows,
+                                long long TW, long long TL, void* stream) {
+  return launch_groups<16>(true, in, out, rows, TW, TL, stream);
+}
+
+extern "C" int ec_unpack_groups16(const void* in, void* out, long long rows,
+                                  long long TW, long long TL, void* stream) {
+  return launch_groups<16>(false, in, out, rows, TW, TL, stream);
 }

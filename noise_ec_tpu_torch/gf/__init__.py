@@ -10,5 +10,6 @@ jax-free ``gf`` modules).
 from noise_ec_tpu_torch.gf.bitmatrix import (  # noqa: F401
     constant_bitmatrix,
     expand_generator_bits,
+    expand_generator_masks,
 )
 from noise_ec_tpu_torch.gf.field import GF, GF256, GF65536  # noqa: F401

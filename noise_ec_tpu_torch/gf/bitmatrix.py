@@ -47,3 +47,12 @@ def expand_generator_bits(gf: GF, G: np.ndarray) -> np.ndarray:
             >> np.arange(m, dtype=np.uint32)) & 1  # [i, j, col b, bit a]
     return np.ascontiguousarray(
         bits.transpose(0, 3, 1, 2).reshape(m * r, m * k), dtype=np.uint8)
+
+
+def expand_generator_masks(gf: GF, G: np.ndarray) -> np.ndarray:
+    """Like :func:`expand_generator_bits` but as select masks: the (m*r,
+    m*k) operand of the dense-mask kernels (ops/gf2mm.py), -1 (every bit
+    set, the reference's 0xFFFFFFFF) where the bit is set and 0 elsewhere,
+    as int32. Built by a view of the uint32 masks, so no value is clamped."""
+    bits = expand_generator_bits(gf, G)
+    return (bits.astype(np.uint32) * np.uint32(0xFFFFFFFF)).view(np.int32)

@@ -3,9 +3,11 @@ product over bit-planes (an XOR network, or a dense int8 product past its
 budgets), in hand-written CUDA kernels for the H100 (``csrc/``).
 
 - ``pack``     — K2/K3, lane pack and unpack between words and bit-planes,
-  and their row-blocked use K6 on the panel route; K10, the GF(2^16)
-  16-plane pack and unpack, and the byte-sliced GF(2^16) layouts
-- ``gf2mm``    — K4, the sparse GF(2) matmul over tiled planes
+  and their row-blocked use K6 on the panel route; K9 and K10, the
+  sublane-group pack and unpack at 8 and 16 planes (the reference's tier 3
+  and GF(2^16) words), and the byte-sliced GF(2^16) layouts
+- ``gf2mm``    — K4, the sparse GF(2) matmul over tiled planes; K11/K12,
+  the dense-mask GF(2) matmul with the mask matrix as an operand
 - ``fused``    — K1, pack + network + unpack in one launch, and K5, the
   same in K slices for networks K1 cannot hold, with their planners
 - ``panel``    — K7, the block-panel K-tiled matmul for wide geometries,
@@ -14,8 +16,9 @@ budgets), in hand-written CUDA kernels for the H100 (``csrc/``).
   "mxu" route)
 - ``network``  — the factored XOR network (whole or cut into panels) as a
   kernel operand
-- ``dispatch`` — ``DeviceCodec``: per-matrix plans and the words/stripes
-  entry points
+- ``dispatch`` — ``DeviceCodec``: per-matrix plans, the words/stripes
+  entry points, and the error-correcting decode's syndrome and decode1
+  entries
 - ``coalesce`` — batching of concurrent same-shape requests
 
 Each kernel module keeps a ``LAUNCHES`` count of its kernel launches.

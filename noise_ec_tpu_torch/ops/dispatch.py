@@ -31,9 +31,15 @@ card it launches the kernel or raises. Nothing falls back: a build or
 launch error raises, and so does the one route the reference has no kernel
 for either, an "mxu" matrix on the interleaved GF(2^16) words entry.
 
+The error-correcting decode (matrix/bw.py, codec/fec.py) reaches the card
+through :meth:`DeviceCodec.syndrome_stripes` and the decode1 fold
+(:func:`decode1_fold_matrix`, :meth:`DeviceCodec.decode1_words` and its
+byte-sliced GF(2^16) twin): each is one generator-shaped product on the
+routes above.
+
 Left out for now (ROADMAP queue 1): the codec breaker and its prober, the
-``DeviceGate`` admission queue, ``obs/device.py`` telemetry, the FEC
-syndrome and decode1 entries, the mesh tier, and buffer donation
+``DeviceGate`` admission queue, ``obs/device.py`` telemetry, the mesh tier,
+and buffer donation
 (``matmul_words_batch(donate=True)``: the streaming window keeps a ring of
 device buffers instead, parallel/streaming.py).
 """
@@ -112,6 +118,67 @@ _TIERS = (None, "fused", "split", "pipeline")
 # Expansions kept per codec: a GF(2^16) RS(200,56) parity matrix's is
 # 2.9 MB; what each plan needs is cached beside it.
 _BITS_CACHE = 16
+
+
+def decode1_fold_matrix(gf: GF, A: np.ndarray, j: int) -> np.ndarray:
+    """(r2, m) matrix folding the single-corrupt-row decode into ONE
+    generator-shaped product (same per-column guarantee as matrix/bw.py).
+
+    With aug = [A | I] the parity check over the m received rows and
+    p0 the first check row seeing basis column j:
+
+    - row 0 = e_j ^ inv(A[p0,j]) * aug[p0]  — applied to the received
+      rows this is rows[j] ^ inv(A[p0,j]) * s_p0, i.e. row j with the
+      single-support correction applied (the e_j and aug terms cancel
+      at column j, so the corrupted row is reconstructed from the
+      others — correcting a fully-corrupt row IS reconstruction);
+    - rows 1.. = aug[q] ^ (A[q,j]/A[p0,j]) * aug[p0] for q != p0 —
+      each is s_q ^ c_q * s_p0, zero exactly where check row q is
+      consistent with the hypothesis "only row j is in error". A
+      column with ANY nonzero verify symbol must be re-decoded by the
+      general host path; columns that verify (including clean columns,
+      where s_p0 = 0 makes the correction a no-op) are exact.
+
+    Raises ValueError for fewer than two check rows (one parity row leaves
+    no consistency rows, so a mask would claim every column verified with
+    nothing behind it), a ``j`` outside the basis, or an all-zero check
+    column.
+    """
+    A = np.asarray(A, dtype=gf.dtype)
+    r2, k = A.shape
+    if r2 < 2:
+        raise ValueError(
+            f"single-support decode needs >= 2 check rows, got {r2}"
+        )
+    if not 0 <= j < k:
+        raise ValueError(f"j must index a basis row, got {j}")
+    nz = np.flatnonzero(A[:, j])
+    if nz.size == 0:
+        raise ValueError(f"check column {j} is identically zero")
+    p0 = int(nz[0])
+    aug = np.concatenate([A, np.eye(r2, dtype=gf.dtype)], axis=1)
+    inv_c = int(gf.inv(int(A[p0, j])))
+    D = np.zeros((r2, k + r2), dtype=gf.dtype)
+    D[0, j] = 1
+    D[0] ^= gf.mul(inv_c, aug[p0].astype(np.int64)).astype(gf.dtype)
+    out_i = 1
+    for q in range(r2):
+        if q == p0:
+            continue
+        c_q = int(gf.mul(int(A[q, j]), inv_c))
+        D[out_i] = aug[q] ^ gf.mul(
+            c_q, aug[p0].astype(np.int64)
+        ).astype(gf.dtype)
+        out_i += 1
+    return D
+
+
+def _or_rows(rows: torch.Tensor) -> torch.Tensor:
+    """Bitwise OR over the leading axis of a (n >= 1, ...) int tensor."""
+    out = rows[0].clone()
+    for q in range(1, rows.shape[0]):
+        out |= rows[q]
+    return out
 
 
 def pad_words(TW: int, quantum: int = WORD_QUANTUM) -> int:
@@ -434,6 +501,57 @@ class DeviceCodec:
             out = gf2_matmul_sparse(prog, planes, threads)
         out = unpack_words16(out.reshape(B * r, 16, W)).reshape(B, r, TWp)
         return out[:, :, :TW] if TWp != TW else out
+
+    # -- the error-correcting decode's entries (matrix/bw.py) -------------
+
+    def syndrome_stripes(
+        self, A: np.ndarray, rows: np.ndarray
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """Decode syndrome on the card: s = A @ rows[:k] ^ rows[k:].
+
+        ``A`` is the (m-k, k) basis-prediction matrix of the
+        error-correcting decode (matrix/bw.py); ``rows`` the full (m, S)
+        received stripes. XOR is addition in the field, so this is ONE
+        generator-shaped product with the augmented matrix [A | I] over
+        all m rows, on the same kernels as encode. Returns (s, per-column
+        nonzero-row counts); the counts are taken on the host."""
+        A = np.asarray(A, dtype=self.gf.dtype)
+        r2, k = A.shape
+        rows = np.asarray(rows, dtype=self.gf.dtype)
+        if rows.shape[0] != k + r2:
+            raise ValueError(f"expected {k + r2} rows, got {rows.shape[0]}")
+        aug = np.concatenate([A, np.eye(r2, dtype=self.gf.dtype)], axis=1)
+        s = self.matmul_stripes(aug, rows)
+        return s, np.count_nonzero(s, axis=0)
+
+    def decode1_words(self, A: np.ndarray, j: int,
+                      rows_words: torch.Tensor) -> tuple:
+        """Device-resident single-corrupt-row decode step (GF(2^8)).
+
+        ``rows_words``: (m, TW) int32 words of all m received stripes on
+        the codec's device, any TW. Returns (corrected row j (TW,), the
+        OR-fold of the consistency rows (TW,)): a nonzero byte of the
+        second means that byte column defeated the single-support
+        hypothesis and must go through the general path. One
+        generator-shaped product (:meth:`matmul_words`) and an OR."""
+        D = decode1_fold_matrix(self.gf, A, j)  # raises for r2 < 2
+        out = self.matmul_words(D, rows_words)
+        return out[0], _or_rows(out[1:])
+
+    def decode1_words_bytesliced(self, A: np.ndarray, j: int,
+                                 rows_words: torch.Tensor) -> tuple:
+        """The GF(2^16) twin of :meth:`decode1_words` on byte-sliced words.
+
+        ``rows_words``: (2m, TW) int32 byte-sliced words of all m received
+        stripes (share i's lo-byte row at 2i, its hi-byte row at 2i + 1:
+        ``ops.pack.words16_to_bytesliced``). Returns (the corrected row j
+        as its two byte rows (2, TW), the OR-fold of every consistency
+        byte row (TW,)): a u16 column is bad where either of its byte
+        columns is nonzero. One byte-sliced product
+        (:meth:`matmul_words_bytesliced`)."""
+        D = decode1_fold_matrix(self.gf, A, j)  # raises for r2 < 2
+        out = self.matmul_words_bytesliced(D, rows_words)
+        return out[:2], _or_rows(out[2:])
 
     # -- stripes entries (host arrays) -------------------------------------
 

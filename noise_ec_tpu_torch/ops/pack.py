@@ -20,13 +20,20 @@ variant (``_pack_lanes_blocked_call`` / ``_unpack_lanes_blocked_call``,
 K6): the same kernels, at the TL the reference pins to a 32-row block, so
 the panel pipeline's two ends agree whatever the row counts.
 
-The GF(2^16) pair (:func:`pack_words16`, :func:`unpack_words16`, K10)
-ports ``_pack16_kernel`` / ``_unpack16_kernel``: interleaved-u16 words
-``(rows, TW)`` become 16 bit-planes ``(rows, 16, TW/16)`` through the
-16x16 delta-swap, with the reference's sublane bijection. Beside it sit
-the layout helpers of the byte-sliced GF(2^16) route: the host relayout
-between u16 symbols and adjacent lo/hi byte rows, and its device
-counterpart on words (plain PyTorch bit ops, as in the reference).
+The sublane pair (:func:`pack_words_sublane`, :func:`unpack_words_sublane`,
+K9) ports ``_pack_kernel`` / ``_unpack_kernel``, the reference's tier-3
+layout: words ``(rows, TW)`` viewed as ``(rows, TW/(8*TL), 8, TL)``
+groups become 8 bit-planes ``(rows, 8, TW/8)`` through the 8x8
+delta-swap, so plane i of row j is row 8j + i of the ``(8*rows, TW/8)``
+plane matrix. The GF(2^16) pair (:func:`pack_words16`,
+:func:`unpack_words16`, K10) ports ``_pack16_kernel`` /
+``_unpack16_kernel``: the same sublane bijection at 16 words a group, so
+interleaved-u16 words become 16 bit-planes ``(rows, 16, TW/16)`` through
+the 16x16 delta-swap. One CUDA kernel, templated on the group, serves
+both. Beside them sit the layout helpers of the byte-sliced GF(2^16)
+route: the host relayout between u16 symbols and adjacent lo/hi byte
+rows, and its device counterpart on words (plain PyTorch bit ops, as in
+the reference).
 
 Each kernel has a plain PyTorch version beside it. The wrappers take the
 plain version only for a tensor on the CPU; a CUDA tensor launches the
@@ -43,8 +50,8 @@ from noise_ec_tpu_torch.ops import _build
 _ROUNDS = ((1, 0x55555555), (2, 0x33333333), (4, 0x0F0F0F0F))
 _ROUNDS16 = _ROUNDS + ((8, 0x00FF00FF),)
 LAUNCHES = {"pack_lanes": 0, "unpack_lanes": 0, "pack_lanes_blocked": 0,
-            "unpack_lanes_blocked": 0, "pack_words16": 0,
-            "unpack_words16": 0}
+            "unpack_lanes_blocked": 0, "pack_sublane": 0,
+            "unpack_sublane": 0, "pack_words16": 0, "unpack_words16": 0}
 
 # The reference's row block for the wide-geometry pack, and the VMEM budget
 # its TL rule sizes that block's double-buffered in and out tiles against
@@ -208,45 +215,109 @@ def unpack_words_lanes_blocked(planes: torch.Tensor) -> torch.Tensor:
                    "unpack_lanes_blocked")
 
 
-# -- GF(2^16): K10 and the byte-sliced layouts -------------------------------
+# -- the sublane-group pack: K9 (8 planes) and K10 (16 planes) ------------
 
 
-def tile_lanes16(TW: int) -> int:
-    """K10's TL: the reference's ``_tile_lanes(TW, 512, group=16)``,
-    min(512, max(128, TW/16)) halved until its 16-word groups tile TW
-    (not always a power of two: 384 at TW = 6144)."""
-    TL = min(512, max(128, TW // 16))
-    while TW % (16 * TL):
+def tile_lanes(TW: int, group: int = 8) -> int:
+    """The sublane kernels' TL: the reference's ``_tile_lanes(TW, 512,
+    group)``, min(512, max(128, TW/group)) halved until its ``group``-word
+    groups tile TW (not always a power of two: 384 at TW = 3072 for
+    group 8, at TW = 6144 for group 16)."""
+    TL = min(512, max(128, TW // group))
+    while TW % (group * TL):
         TL //= 2
         if TL < 128:
-            raise ValueError(f"word count {TW} not divisible by 16*128")
+            raise ValueError(
+                f"word count {TW} not divisible by {group}*128")
     return TL
+
+
+_GROUP_TRANSPOSE = {8: transpose8, 16: transpose16}
+
+
+def _pack_groups_plain(words: torch.Tensor, group: int) -> torch.Tensor:
+    rows, TW = words.shape
+    TL = tile_lanes(TW, group)
+    V = _GROUP_TRANSPOSE[group](
+        words.reshape(rows, TW // (group * TL), group, TL), 2)
+    return V.permute(0, 2, 1, 3).reshape(rows, group, TW // group).contiguous()
+
+
+def _unpack_groups_plain(planes: torch.Tensor) -> torch.Tensor:
+    rows, group, W = planes.shape
+    TL = tile_lanes(group * W, group)
+    V = planes.reshape(rows, group, W // TL, TL).permute(0, 2, 1, 3)
+    return _GROUP_TRANSPOSE[group](V, 2).reshape(rows, group * W).contiguous()
+
+
+def pack_words_sublane_plain(words: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch K9 pack: (rows, TW) int32 -> (rows, 8, TW/8)."""
+    return _pack_groups_plain(words, 8)
+
+
+def unpack_words_sublane_plain(planes: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch K9 unpack: (rows, 8, W) int32 -> (rows, 8*W)."""
+    return _unpack_groups_plain(planes)
 
 
 def pack_words16_plain(words: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch K10 pack: (rows, TW) int32 -> (rows, 16, TW/16)."""
-    rows, TW = words.shape
-    TL = tile_lanes16(TW)
-    V = transpose16(words.reshape(rows, TW // (16 * TL), 16, TL), 2)
-    return V.permute(0, 2, 1, 3).reshape(rows, 16, TW // 16).contiguous()
+    return _pack_groups_plain(words, 16)
 
 
 def unpack_words16_plain(planes: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch K10 unpack: (rows, 16, W) int32 -> (rows, 16*W)."""
-    rows, _, W = planes.shape
-    TL = tile_lanes16(16 * W)
-    V = planes.reshape(rows, 16, W // TL, TL).permute(0, 2, 1, 3)
-    return transpose16(V, 2).reshape(rows, 16 * W).contiguous()
+    return _unpack_groups_plain(planes)
 
 
-def _check16(x: torch.Tensor, ndim: int) -> int:
-    if x.dtype != torch.int32 or x.dim() != ndim or not x.is_contiguous():
+def _pack_groups(words: torch.Tensor, group: int, counter: str) -> torch.Tensor:
+    if words.dtype != torch.int32 or words.dim() != 2 \
+            or not words.is_contiguous():
         raise ValueError(
-            f"expected a contiguous {ndim}-D int32 tensor, got {x.dtype} "
-            f"{tuple(x.shape)}"
+            f"expected contiguous (rows, TW) int32 words, got {words.dtype} "
+            f"{tuple(words.shape)}"
         )
-    TW = x.shape[-1] * (16 if ndim == 3 else 1)
-    return tile_lanes16(TW)
+    rows, TW = words.shape
+    tl = tile_lanes(TW, group)
+    if words.device.type == "cpu":
+        return _pack_groups_plain(words, group)
+    out = torch.empty((rows, group, TW // group), dtype=torch.int32,
+                      device=words.device)
+    _launch(f"ec_pack_groups{group}", words, out, rows, TW, tl)
+    LAUNCHES[counter] += 1
+    return out
+
+
+def _unpack_groups(planes: torch.Tensor, group: int,
+                   counter: str) -> torch.Tensor:
+    if planes.dtype != torch.int32 or planes.dim() != 3 \
+            or not planes.is_contiguous() or planes.shape[1] != group:
+        raise ValueError(
+            f"expected contiguous (rows, {group}, W) int32 planes, got "
+            f"{planes.dtype} {tuple(planes.shape)}"
+        )
+    rows, _, W = planes.shape
+    tl = tile_lanes(group * W, group)
+    if planes.device.type == "cpu":
+        return _unpack_groups_plain(planes)
+    out = torch.empty((rows, group * W), dtype=torch.int32,
+                      device=planes.device)
+    _launch(f"ec_unpack_groups{group}", planes, out, rows, group * W, tl)
+    LAUNCHES[counter] += 1
+    return out
+
+
+def pack_words_sublane(words: torch.Tensor) -> torch.Tensor:
+    """K9 pack: (rows, TW) int32 words -> (rows, 8, TW/8) bit-planes, the
+    reference's ``pack_words_pallas``; plane i of row j is row 8j + i of
+    the (8*rows, TW/8) plane matrix. TW must be a multiple of 8*128.
+    Inverse: :func:`unpack_words_sublane`."""
+    return _pack_groups(words, 8, "pack_sublane")
+
+
+def unpack_words_sublane(planes: torch.Tensor) -> torch.Tensor:
+    """K9 unpack: (rows, 8, W) int32 bit-planes -> (rows, 8*W) words."""
+    return _unpack_groups(planes, 8, "unpack_sublane")
 
 
 def pack_words16(words: torch.Tensor) -> torch.Tensor:
@@ -254,30 +325,15 @@ def pack_words16(words: torch.Tensor) -> torch.Tensor:
     TW/16) bit-planes; plane i of row j holds bit i of its 32 symbols a
     group. TW must be a multiple of 16*128. Inverse:
     :func:`unpack_words16`."""
-    tl = _check16(words, 2)
-    if words.device.type == "cpu":
-        return pack_words16_plain(words)
-    rows, TW = words.shape
-    out = torch.empty((rows, 16, TW // 16), dtype=torch.int32,
-                      device=words.device)
-    _launch("ec_pack_words16", words, out, rows, TW, tl)
-    LAUNCHES["pack_words16"] += 1
-    return out
+    return _pack_groups(words, 16, "pack_words16")
 
 
 def unpack_words16(planes: torch.Tensor) -> torch.Tensor:
     """K10 unpack: (rows, 16, W) int32 bit-planes -> (rows, 16*W) words."""
-    tl = _check16(planes, 3)
-    if planes.shape[1] != 16:
-        raise ValueError(f"expected (rows, 16, W) planes, got "
-                         f"{tuple(planes.shape)}")
-    if planes.device.type == "cpu":
-        return unpack_words16_plain(planes)
-    rows, _, W = planes.shape
-    out = torch.empty((rows, 16 * W), dtype=torch.int32, device=planes.device)
-    _launch("ec_unpack_words16", planes, out, rows, 16 * W, tl)
-    LAUNCHES["unpack_words16"] += 1
-    return out
+    return _unpack_groups(planes, 16, "unpack_words16")
+
+
+# -- GF(2^16): the byte-sliced layouts ---------------------------------------
 
 
 def pack_u16_bytesliced(x: np.ndarray, out: np.ndarray = None) -> np.ndarray:

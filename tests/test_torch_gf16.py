@@ -27,7 +27,7 @@ from noise_ec_tpu_torch.ops.pack import (
     pack_u16_bytesliced,
     pack_words16,
     pack_words16_plain,
-    tile_lanes16,
+    tile_lanes,
     transpose16,
     unpack_u16_bytesliced,
     unpack_words16,
@@ -68,7 +68,7 @@ def test_pack16_matches_reference_kernel(rng, TW):
     """Plane for plane against ``pack_words16_pallas(interpret=True)``,
     TL included (384 at TW = 6144: not a power of two)."""
     w = _words(rng, (3, TW))
-    assert tile_lanes16(TW) == ref_pack._tile_lanes(TW, 512, group=16)
+    assert tile_lanes(TW, 16) == ref_pack._tile_lanes(TW, 512, group=16)
     want = np.asarray(ref_pack.pack_words16_pallas(jnp.asarray(w),
                                                     interpret=True))
     planes = pack_words16(_t(w))
