@@ -8,19 +8,25 @@ before printing any result. Phases (one JSON line each):
    name the card (and its power limit, from nvidia-smi);
 2. kernels — each kernel against its plain PyTorch version on the card, at
    the main path's shapes (1 MiB shards), byte for byte, and the fused
-   kernel also against the NumPy field arithmetic; the panel route's
-   kernels at RS(200,56): the row-blocked pack and unpack (200 and 56
-   rows) and the panel matmul in one launch and in the reference's three
-   sub-launches, each against its plain version and the two against each
-   other;
+   kernel also against the NumPy field arithmetic;
+   panel_kernels — the row-blocked pack and unpack (200 and 56 rows) at
+   RS(200,56), and the panel matmul K7 on every matrix the panel route
+   runs it on (RS(200,56)'s parity and (56,200) recovery matrix, RS(100,30),
+   RS(229,6) at 64 KiB, GF(2^16) RS(60,20) byte-sliced and interleaved),
+   each against its plain version and the NumPy field arithmetic on a 64
+   KiB slice; at RS(200,56) also in the reference's three sub-launches,
+   with the K tiles split over four blocks, as an accumulating launch split
+   over three, and on a ragged width;
    gf16_kernels — the dense GF(2) product K8 against its plain version at
    full width on RS(200,56)'s GF(2^16) parity (1 MiB shards, 400 byte
    rows) and on a dense (200, 200) GF(2^8) matrix, and the 16-plane pack
    and unpack K10 at RS(10,4)'s GF(2^16) shapes, with their round trip;
-   split_kernels — the K-sliced fused encode K5 against its plain version
-   on RS(50,20)'s parity and its (20, 50) recovery matrix (each also
-   against the NumPy field arithmetic on a 64 KiB slice), and RS(10,4)
-   forced onto K5, also against K1;
+   split_kernels — the K-sliced fused encode K5 against its plain version,
+   at its plan and with its phases split over three blocks, on RS(50,20)'s
+   parity and (20, 50) recovery matrix, RS(30,10), RS(40,12), GF(2^16)
+   RS(30,10) and RS(10,4) (each also against the NumPy field arithmetic
+   on a 64 KiB slice, RS(10,4) also against K1), on a batch of three and
+   on ragged words through the codec;
    dense_kernels — the sublane pack and unpack K9 at RS(10,4)'s 1 MiB
    shards and at TW = 3,072 (TL = 384), and the dense-mask products K11
    and K12 on RS(10,4)'s (32, 80) select masks, random-word masks of that
@@ -30,14 +36,15 @@ before printing any result. Phases (one JSON line each):
    encode, verify, lose shards {0, 5, 11}, reconstruct, join; a batch of
    five 1 MiB stripes through the coalescer; RS(4,2) on a 64 KiB message;
    one product forced through the pack -> sparse matmul -> unpack
-   pipeline. Then the panel route: ``ReedSolomon(200, 56)`` on a 200 MiB
+   pipeline and one forced through the fused kernel K1 (the planner takes
+   K5 first). Then the panel route: ``ReedSolomon(200, 56)`` on a 200 MiB
    object (encode, verify, lose 28 data and 28 parity shards, reconstruct,
    reconstruct_data, join; the NumPy codec checks a 64 KiB column slice),
    and ``ReedSolomon(229, 6)`` at 64 KiB shards. Launch counts are zeroed
    just before each path and read just after, and every kernel of a path
    must have launched (the accumulating panel launch is on no path: the
    planner splits no K axis). Then GF(2^16): ``ReedSolomon(10, 4,
-   field="gf65536")`` on a 10 MiB object (K1 over 20 byte rows) and
+   field="gf65536")`` on a 10 MiB object (K5 over 20 byte rows) and
    ``ReedSolomon(200, 56, field="gf65536")`` on a 200 MiB object (K8 on
    encode and on the 56-erasure reconstruct), each through encode, verify,
    reconstruct, reconstruct_data and join; the interleaved-u16
@@ -46,7 +53,7 @@ before printing any result. Phases (one JSON line each):
    matrix through ``matmul_stripes`` (K8). Then the streams (BASELINE
    config 3): ``StreamingEncoder(50, 20)`` on 400 MiB in 50 MiB chunks,
    decoded by ``StreamingDecoder`` at 10 data + 10 parity erasures (K5
-   both ways); RS(17,3) on 272 MiB in 17 MiB chunks, decoded at 3 (K1);
+   both ways); RS(17,3) on 272 MiB in 17 MiB chunks, decoded at 3 (K5);
    64 MiB in 4 MiB chunks at RS(50,20) with a short tail, through
    ``decode_stream``; and ``ReedSolomon(30, 10, field="gf65536")`` on a
    30 MiB object, encode and a 10-erasure reconstruct (K5). Then the
@@ -63,17 +70,21 @@ before printing any result. Phases (one JSON line each):
    take, the codec's RS(10,4) encode rate (device-resident words and end
    to end from host arrays) and reconstruct p50 at 3 erasures, and the
    same three numbers for RS(200,56) at 1 MiB shards; the panel matmul
-   also on the (56,200) recovery matrix and on RS(229,6)'s parity;
+   beside its own operation floor, also on the (56,200) recovery matrix
+   and on RS(229,6)'s parity;
    gf16_times — K8 beside its bound and beside ``torch._int_mm`` on the
    pre-expanded bits (a yardstick for the dot alone), K10 beside its byte
    bounds, ``matmul_words_bytesliced`` and the interleaved ``matmul_words``,
    ``encode`` GB/s and ``reconstruct`` p50 at 3 and at 56 erasures over
    GF(2^16), and the seconds to plan a new recovery matrix;
-   split_times — K5 at RS(50,20) beside its bound and its plain version,
-   and on the recovery matrix; ``matmul_words`` there through K5 and
-   through the forced pipeline; K1 at its plan against K5 forced on
-   RS(30,10) and RS(40,12); stream encode and decode GB/s from host bytes
-   at RS(17,3) and RS(50,20) with the device's share of the wall time;
+   split_times — K5 at RS(50,20) beside its bound, its own operation
+   floor, its plain version and the K9 -> K11 -> K9 chain on the same
+   matrix, and on the recovery matrix; ``matmul_words`` there through K5
+   and through the forced pipeline; K1 against K5 from RS(4,2) to
+   RS(50,20) at 1 MiB shards, and on RS(4,2), RS(10,4) and RS(17,3) at the
+   main path's small shards (16 to 64 KiB); the seconds to plan a new RS(50,20) recovery matrix; stream
+   encode and decode GB/s from host bytes at RS(17,3) and RS(50,20) with
+   the device's share of the wall time;
    dense_times — K9, K11 and K12 beside their bounds and plain versions
    at RS(10,4)'s shapes, and K11 on RS(50,20)'s masks;
    fec_times — the FEC decode p50 per case and route on the host clock,
@@ -82,15 +93,18 @@ before printing any result. Phases (one JSON line each):
 Each phase's line carries its seconds.
 
 Then a ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
-``--panel-sweep`` adds, before those two lines, the panel matmul's time
-under other panel shapes and block sizes than the planner's, on the three
-panel matrices that ``panel_times`` times.
+``--panel-sweep`` adds, before those two lines, K7's time under other
+tile shapes than the planner's, on the three panel matrices that
+``panel_times`` times, and K5's on RS(50,20). ``--out FILE``
+also writes every JSON line to FILE.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -138,8 +152,16 @@ LIBRARY_NOTE = ("no single PyTorch call computes a GF(2^8) or GF(2^16) "
                 "and repacks, or these bit transposes")
 
 
+# Where --out copies every line emit() prints.
+_OUT: list = []
+
+
 def emit(obj: dict) -> None:
-    print(json.dumps(obj), flush=True)
+    line = json.dumps(obj)
+    print(line, flush=True)
+    for f in _OUT:
+        f.write(line + "\n")
+        f.flush()
 
 
 def check(cond: bool, what: str) -> None:
@@ -290,12 +312,11 @@ def phase_kernels(rng, device, results: dict) -> dict:
         bits_rows = codec.bits_rows_for(M)
         t0 = time.monotonic()
         plan = fused_plan(bits_rows, 8 * k)
-        planner = "fused"
+        planner = codec.plan_for(M)[0]
         if plan is None:
-            # The planner sends this matrix to another kernel; hold the
-            # fused kernel to its plain version all the same, on one warp a
-            # block with the temp cap that fills shared memory.
-            planner = codec.plan_for(M)[0]
+            # K1 cannot hold the whole factoring; hold it to its plain
+            # version all the same, on one warp a block with the temp cap
+            # that fills shared memory.
             full = compile_network(bits_rows, 8 * k)
             used = int((full.in_slot >= 0).sum())
             cap = SMEM_BYTES // (4 * 32) - used
@@ -327,30 +348,76 @@ def rs_200_56_parity():
     return gf, generator_matrix(gf, 200, 256, "cauchy")[200:]
 
 
-def phase_panel_kernels(rng, device, results: dict, codec) -> dict:
-    """K6 and K7 at RS(200,56), 1 MiB shards, against their plain versions;
-    K7 in one launch and in the reference's G = 3 sub-launches. ``codec``
-    is the shared GF(2^8) codec, which keeps the plan."""
+def host_product_bytes(cx, M, w: torch.Tensor, cols: int) -> np.ndarray:
+    """The NumPy field arithmetic's product of ``M`` and the byte rows of
+    the words ``w`` over their first ``cols`` words, as byte rows; on a
+    GF(2^16) codec ``w`` is byte-sliced (shard j's lo bytes at row 2j, its
+    hi bytes at 2j+1) and so is the result."""
+    from noise_ec_tpu_torch.matrix import host_matvec
+
+    u8 = w[:, :cols].cpu().numpy().view(np.uint8)
+    if cx.sym_bytes == 1:
+        return host_matvec(cx.gf, M, u8)
+    sym = u8[0::2].astype(np.uint16) | (u8[1::2].astype(np.uint16) << 8)
+    want = host_matvec(cx.gf, M, sym)
+    out = np.empty((2 * M.shape[0], u8.shape[1]), dtype=np.uint8)
+    out[0::2] = want & 0xFF
+    out[1::2] = want >> 8
+    return out
+
+
+def panel_cases(codec, codec16) -> dict:
+    """Every matrix the panel route runs K7 on, with the int32 words a
+    shard the main path gives it: RS(200,56)'s parity and (56,200)
+    recovery matrix and RS(100,30)'s parity at 1 MiB shards, RS(229,6)'s
+    parity at 64 KiB, and GF(2^16) RS(60,20)'s parity on the byte-sliced
+    route (120 byte rows) and on the interleaved words entry (16 planes a
+    shard). Values: (codec, matrix, words a shard, GF(2^16) interleaved)."""
+    from noise_ec_tpu_torch.gf import GF65536
+    from noise_ec_tpu_torch.matrix import generator_matrix
+
+    M60 = generator_matrix(GF65536(), 60, 80, "cauchy")[60:]
+    cases = {name: (codec, M, tw, False)
+             for name, (M, tw) in panel_matrices(codec).items()}
+    gf = codec.gf
+    cases["RS(100,30) parity"] = (
+        codec, generator_matrix(gf, 100, 130, "cauchy")[100:], TW, False)
+    cases["GF(2^16) RS(60,20) parity, byte-sliced"] = (codec16, M60, TWB,
+                                                       False)
+    cases["GF(2^16) RS(60,20) parity, interleaved"] = (codec16, M60, TW, True)
+    for name, (cx, M, _, _) in cases.items():
+        check(cx.route_for(M) == "panel", f"{name} routes panel")
+    return cases
+
+
+def phase_panel_kernels(rng, device, results: dict, codec, codec16) -> dict:
+    """K6 and K7 against their plain versions on the card, byte for byte.
+    K6 at RS(200,56), 1 MiB shards (200 and 56 rows). K7 on every matrix
+    of :func:`panel_cases` at its plan, each product also unpacked and held
+    against the NumPy field arithmetic on a 64 KiB slice; at RS(200,56)
+    also in the reference's three sub-launches (the accumulating launch),
+    in a forced split of the K tiles over four blocks, as an accumulating
+    launch with a K split, and on a ragged plane width. ``codec`` and
+    ``codec16`` are the shared codecs, which keep the plans."""
+    from noise_ec_tpu_torch.gf import GF65536
     from noise_ec_tpu_torch.matrix import host_matvec
     from noise_ec_tpu_torch.ops.pack import (
         blocked_lane_tl,
+        pack_words16,
         pack_words_lanes_blocked,
         pack_words_lanes_blocked_plain,
+        unpack_words16,
         unpack_words_lanes_blocked,
         unpack_words_lanes_blocked_plain,
     )
     from noise_ec_tpu_torch.ops.panel import (
+        gf2_matmul_panel,
         gf2_matmul_panel_chain,
         gf2_matmul_panel_plain,
         sublaunch_count,
     )
 
-    gf, M = rs_200_56_parity()
-    check(codec.route_for(M) == "panel", "RS(200,56) routes panel")
-    t0 = time.monotonic()
-    kind, threads, prog, G = codec.plan_for(M)
-    plan_s = time.monotonic() - t0
-    W8 = TW // 64
+    _, M = rs_200_56_parity()
     words = rand_words(rng, (200, TW), device)
     planes = pack_words_lanes_blocked(words)
     err_p = max_abs_err(planes, pack_words_lanes_blocked_plain(words))
@@ -359,42 +426,83 @@ def phase_panel_kernels(rng, device, results: dict, codec) -> dict:
     torch.cuda.synchronize()
     check(err_p == 0 and err_u == 0, "blocked pack/unpack (200 rows) vs plain")
     check(torch.equal(back, words), "blocked pack/unpack round trip")
+    del back
 
-    planes = planes.reshape(1600, 8, W8)
-    G3 = sublaunch_count(codec._xor_cost_for(M), prog.PK)
-    one = gf2_matmul_panel_chain(prog, planes, threads, 1)
-    three = gf2_matmul_panel_chain(prog, planes, threads, G3)
-    plain = gf2_matmul_panel_plain(prog, planes)
-    err_1 = max_abs_err(one, plain)
-    err_3 = max_abs_err(three, plain)
-    parity = unpack_words_lanes_blocked(one.reshape(56, 8, 8, W8))
-    err_u56 = max_abs_err(
-        parity, unpack_words_lanes_blocked_plain(one.reshape(56, 8, 8, W8)))
-    host_words = HOST_SLICE // 4
-    host = host_matvec(gf, M, words[:, :host_words].cpu().numpy().view(np.uint8))
-    torch.cuda.synchronize()
-    check(err_1 == 0, "panel matmul G=1 vs plain")
-    check(err_3 == 0 and torch.equal(one, three),
-          f"panel matmul G={G3} vs plain and vs G=1")
-    check(err_u56 == 0, "blocked unpack (56 rows) vs plain")
-    check(np.array_equal(
-        parity[:, :host_words].cpu().numpy().view(np.uint8), host),
-        "panel parity vs host_matvec on a 64 KiB slice")
-    results["gf2mm_panel"]["max_abs_err"] = err_1
-    results["gf2mm_panel_acc"]["max_abs_err"] = err_3
+    report = {"phase": "panel_kernels", "blocked_tl": blocked_lane_tl(TW)}
+    err_k7 = err_acc = err_u56 = 0
+    host_cols = HOST_SLICE // 4
+    for name, (cx, Mx, tw, inter) in panel_cases(codec, codec16).items():
+        r, k = Mx.shape
+        t0 = time.monotonic()
+        kind, threads, tiles, G = cx.plan_for(Mx)
+        plan_s = time.monotonic() - t0
+        check(kind == "panel" and G == 1, f"{name} plans K7 in one launch")
+        rows = cx.sym_bytes * k  # byte rows in; shards for the interleaved
+        w = words if name == "RS(200,56) parity" else rand_words(
+            rng, (k if inter else rows, tw), device)
+        if inter:
+            x = pack_words16(w).reshape(16 * k, 8, tw // 128)
+        else:
+            x = pack_words_lanes_blocked(w).reshape(8 * rows, 8, tw // 64)
+        out = gf2_matmul_panel(tiles, x, threads)
+        err = max_abs_err(out, gf2_matmul_panel_plain(tiles, x))
+        check(err == 0, f"K7 {name} vs plain")
+        err_k7 = max(err_k7, err)
+        if inter:
+            got = unpack_words16(out.reshape(r, 16, tw // 16))
+            host = host_matvec(GF65536(), Mx,
+                               w[:, :host_cols].cpu().numpy().view("<u2"))
+            ok = np.array_equal(got[:, :host_cols].cpu().numpy().view("<u2"),
+                                host)
+        else:
+            got = unpack_words_lanes_blocked(
+                out.reshape(cx.sym_bytes * r, 8, 8, tw // 64))
+            e = max_abs_err(got, unpack_words_lanes_blocked_plain(
+                out.reshape(cx.sym_bytes * r, 8, 8, tw // 64)))
+            err_u56 = max(err_u56, e)
+            cols = min(host_cols, tw)
+            ok = np.array_equal(got[:, :cols].cpu().numpy().view(np.uint8),
+                                host_product_bytes(cx, Mx, w, cols))
+        check(ok, f"K7 {name} vs host_matvec (64 KiB slice)")
+        report[name] = {"shard_bytes": 4 * tw, "planes": list(x.shape),
+                        "rows": tiles.n_rows, "KT": tiles.KT,
+                        "row_group": tiles.RGR, "WC": tiles.WC,
+                        "threads": threads,
+                        "ring_bytes": tiles.ring_bytes,
+                        "plan_seconds": plan_s, "equal": True}
+        if name != "RS(200,56) parity":
+            continue
+        # The reference's sub-launches, a forced K split, an accumulating
+        # launch split over K, a ragged width.
+        G3 = sublaunch_count(codec._xor_cost_for(Mx), tiles.NT)
+        three = gf2_matmul_panel_chain(tiles, x, threads, G3)
+        split4 = gf2_matmul_panel(tiles, x, threads, ksplit=4)
+        acc = rand_words(rng, tuple(out.shape), device)
+        acc_plain = acc.clone()
+        lo, hi = 5, tiles.NT - 7
+        gf2_matmul_panel(tiles, x, threads, acc=acc, k_slice=(lo, hi),
+                         ksplit=3)
+        gf2_matmul_panel_plain(tiles, x, acc=acc_plain, k_slice=(lo, hi))
+        ragged = x[:, :, :98].contiguous()
+        err_r = max_abs_err(gf2_matmul_panel(tiles, ragged, threads),
+                            gf2_matmul_panel_plain(tiles, ragged))
+        e3 = max_abs_err(three, out)
+        e4 = max_abs_err(split4, out)
+        ea = max_abs_err(acc, acc_plain)
+        torch.cuda.synchronize()
+        check(e3 == 0, f"K7 in G={G3} sub-launches vs one")
+        check(e4 == 0, "K7 with the K tiles split over four blocks")
+        check(ea == 0, "K7 accumulating launch (split over three) vs plain")
+        check(err_r == 0, "K7 on a ragged width (98 words an 8-word row)")
+        err_acc = max(e3, ea)
+        err_k7 = max(err_k7, e4, err_r)
+        report[name].update(forced_sublaunches=G3, forced_ksplit=4,
+                            acc_k_slice=[lo, hi], ragged_w8=98)
+    results["gf2mm_panel"]["max_abs_err"] = err_k7
+    results["gf2mm_panel_acc"]["max_abs_err"] = err_acc
     results["pack_lanes_blocked"]["max_abs_err"] = err_p
     results["unpack_lanes_blocked"]["max_abs_err"] = max(err_u, err_u56)
-    return {
-        "phase": "panel_kernels", "matrix": "RS(200,56) parity",
-        "plan": {"KB": prog.KB, "RB": prog.RB, "threads": threads,
-                 "temp_cap": prog.temp_cap, "G": G},
-        "plan_seconds": plan_s, "blocked_tl": blocked_lane_tl(TW),
-        "panels": [prog.PR, prog.PK], "slots": prog.n_slots,
-        "xors": prog.cost, "raw_xors": prog.raw,
-        "whole_network_raw_xors": codec._xor_cost_for(M),
-        "forced_sublaunches": G3, "equal": True,
-    }
-
+    return report
 
 
 def rs16_200_56_parity():
@@ -518,51 +626,90 @@ def rs_50_20():
                                         list(SPLIT_LOST))
 
 
-def phase_split_kernels(rng, device, results: dict, codec) -> dict:
-    """K5 against its plain version on the card, byte for byte, at 1 MiB
-    shards: RS(50,20)'s parity and (20, 50) recovery matrix, each also
-    against the NumPy field arithmetic on a 64 KiB slice, and RS(10,4)
-    forced onto K5, also against K1. ``codec`` is the shared GF(2^8)
-    codec."""
-    from noise_ec_tpu_torch.matrix import generator_matrix, host_matvec
+def split_cases(codec, codec16) -> dict:
+    """Every matrix the baked route runs K5 on in main_path and the times:
+    RS(50,20)'s parity and (20, 50) recovery matrix, RS(30,10)'s and
+    RS(40,12)'s parity, GF(2^16) RS(30,10)'s parity over 60 byte rows, and
+    RS(10,4)'s parity. Values: (codec, matrix, words a byte row)."""
+    from noise_ec_tpu_torch.gf import GF65536
+    from noise_ec_tpu_torch.matrix import generator_matrix
+
+    gf, G, R = rs_50_20()
+    cases = {"RS(50,20) parity": (codec, G[50:], TW),
+             "RS(50,20) recovery (20,50)": (codec, R, TW)}
+    for k, r in ((30, 10), (40, 12), (10, 4)):
+        cases[f"RS({k},{r}) parity"] = (
+            codec, generator_matrix(gf, k, k + r, "cauchy")[k:], TW)
+    cases["GF(2^16) RS(30,10) parity"] = (
+        codec16, generator_matrix(GF65536(), 30, 40, "cauchy")[30:], TWB)
+    for name, (cx, M, _) in cases.items():
+        check(cx.route_for(M) == "baked", f"{name} routes baked")
+    return cases
+
+
+def phase_split_kernels(rng, device, results: dict, codec, codec16) -> dict:
+    """K5 against its plain version on the card, byte for byte, on every
+    matrix of :func:`split_cases` at 1 MiB shards, at its plan and with
+    its phases split over three blocks a column tile, each also against
+    the NumPy field arithmetic on a 64 KiB slice; RS(10,4) also against
+    K1 forced; and RS(50,20)'s parity on a batch of three at the smallest
+    word quantum and through the words entry on ragged words (TW off the
+    quantum). ``codec`` and ``codec16`` are the shared codecs."""
     from noise_ec_tpu_torch.ops.fused import (
         fused_encode_words,
         fused_split_encode_words,
         fused_split_encode_words_plain,
     )
 
-    gf, G, R = rs_50_20()
     report = {"phase": "split_kernels"}
     err = 0
-    for name, M, tier in (
-            ("RS(50,20) parity", G[50:], None),
-            ("RS(50,20) recovery (20,50)", R, None),
-            ("RS(10,4) parity, forced", generator_matrix(gf, 10, 14)[10:],
-             "split")):
-        r, k = M.shape
+    cols = HOST_SLICE // 4
+    for name, (cx, M, tw) in split_cases(codec, codec16).items():
+        r, k = (cx.sym_bytes * n for n in M.shape)
         t0 = time.monotonic()
-        kind, threads, prog, _ = codec.plan_for(M, tier)
+        kind, threads, tiles, _ = cx.plan_for(M)
         plan_s = time.monotonic() - t0
         check(kind == "split", f"{name} plans onto K5")
-        w = rand_words(rng, (k, TW), device)
-        out = fused_split_encode_words(prog, w, r, threads)
-        e = max_abs_err(out, fused_split_encode_words_plain(prog, w, r, 512))
-        cols = HOST_SLICE // 4
-        host = host_matvec(gf, M, w[:, :cols].cpu().numpy().view(np.uint8))
+        w = rand_words(rng, (k, tw), device)
+        out = fused_split_encode_words(tiles, w, r, threads)
+        plain = fused_split_encode_words_plain(tiles, w, r, 128)
+        split3 = fused_split_encode_words(tiles, w, r, threads, ksplit=3)
+        e = max(max_abs_err(out, plain), max_abs_err(split3, plain))
+        host = host_product_bytes(cx, M, w, cols)
         torch.cuda.synchronize()
-        check(e == 0, f"K5 {name} vs plain")
+        check(e == 0, f"K5 {name} vs plain, one block and three a column")
         check(np.array_equal(out[:, :cols].cpu().numpy().view(np.uint8),
                              host), f"K5 {name} vs host_matvec (64 KiB)")
-        if tier == "split":
-            _, t1, p1, _ = codec.plan_for(M)
+        if name == "RS(10,4) parity":
+            _, t1, p1, _ = cx.plan_for(M, "fused")
             check(torch.equal(out, fused_encode_words(p1, w, r, t1)),
                   f"K5 {name} vs K1")
-        report[name] = {"threads": threads, "ksl": prog.ksl,
-                        "phases": prog.P, "slots": prog.n_slots,
-                        "xors": prog.cost, "plan_seconds": plan_s,
-                        "equal": True}
+        report[name] = {"threads": threads, "ksl": tiles.KT // 8,
+                        "phases": tiles.NT, "row_groups": tiles.NRG,
+                        "WC": tiles.WC,
+                        "ring_bytes": tiles.ring_bytes,
+                        "plan_seconds": plan_s, "equal": True}
         err = max(err, e)
-    results["fused_split"]["max_abs_err"] = err
+    # A batch of three at the 32 KiB quantum, and ragged words through the
+    # codec (padded to the quantum and sliced back).
+    M = split_cases(codec, codec16)["RS(50,20) parity"][1]
+    _, threads, tiles, _ = codec.plan_for(M)
+    w3 = rand_words(rng, (3, 50, 8192), device)
+    out3 = fused_split_encode_words(tiles, w3, 20, threads)
+    e3 = max_abs_err(out3, fused_split_encode_words_plain(tiles, w3, 20, 128))
+    ragged = rand_words(rng, (3, 50, TW - 5), device)
+    got = codec.matmul_words_batch(M, ragged)
+    torch.cuda.synchronize()
+    check(e3 == 0, "K5 on a batch of three (TW = 8,192) vs plain")
+    for b in range(3):
+        for lo in (0, TW - 5 - cols):
+            check(np.array_equal(
+                got[b, :, lo:lo + cols].cpu().numpy().view(np.uint8),
+                host_product_bytes(codec, M, ragged[b, :, lo:], cols)),
+                f"K5 on ragged words (TW = {TW - 5}), batch {b}, at {lo}")
+    results["fused_split"]["max_abs_err"] = max(err, e3)
+    report["batch_ragged"] = {"batch": 3, "tw": [8192, TW - 5],
+                              "equal": True}
     return report
 
 # The dense-mask kernels' plane width at 1 MiB shards: the sublane layout's
@@ -756,8 +903,8 @@ def main_path_streams(rng, run_path, out: dict) -> dict:
           "the object stream's tail chunk is short")
     for path, kernel, n in (("stream_rs_50_20_encode", "fused_split", n50),
                             ("stream_rs_50_20_decode", "fused_split", n50),
-                            ("stream_rs_17_3_encode", "fused_encode", n17),
-                            ("stream_rs_17_3_decode", "fused_encode", n17),
+                            ("stream_rs_17_3_encode", "fused_split", n17),
+                            ("stream_rs_17_3_decode", "fused_split", n17),
                             ("stream_object_4mib_encode", "fused_split",
                              nobj)):
         check(out[path][kernel] == n and sum(out[path].values()) == n,
@@ -899,8 +1046,8 @@ def main_path_gf16(rng, run_path, out: dict) -> dict:
         out["rs16_200_56"].values()) == 4,
         "GF(2^16) RS(200,56) ran its four products, encode and reconstruct "
         "included, on K8 alone")
-    check(out["rs16_10_4"]["fused_encode"] > 0,
-          "K1 launched on GF(2^16) RS(10,4)")
+    check(out["rs16_10_4"]["fused_split"] > 0,
+          "K5 launched on GF(2^16) RS(10,4)")
     for name in ("pack_words16", "unpack_words16", "gf2mm_sparse",
                  "gf2mm_panel"):
         check(out["words16"][name] > 0, f"{name} launched on words16")
@@ -964,8 +1111,8 @@ def main_path_hwcheck(run_path, out: dict, codecs: dict) -> dict:
     check(not failed, f"hwcheck: failed {failed}")
     check(len(report["checks"]) == 51, "hwcheck ran its 51 checks")
     for name in ("pack_sublane", "unpack_sublane", "pack_lanes",
-                 "unpack_lanes", "gf2mm_sparse", "fused_encode",
-                 "fused_split", "gf2mm_panel", "mxu_gf2"):
+                 "unpack_lanes", "gf2mm_sparse", "fused_split",
+                 "gf2mm_panel", "mxu_gf2"):
         check(out["hwcheck"][name] > 0, f"{name} launched on hwcheck")
     return {"hwcheck": {key: report[key]
                         for key in ("device", "ok", "elapsed_s")}
@@ -1016,8 +1163,8 @@ def main_path_fec(rng, run_path, out: dict) -> dict:
         fec = FEC(10, 14, bw_route=route)
         shares, out[f"fec_{route}_encode"] = run_path(
             lambda: fec.encode_shares(payload))
-        check(out[f"fec_{route}_encode"]["fused_encode"] > 0,
-              f"K1 launched on fec_{route}_encode")
+        check(out[f"fec_{route}_encode"]["fused_split"] > 0,
+              f"K5 launched on fec_{route}_encode")
         if cases is None:
             cases = fec_cases(rng, shares, 10)
         for name, case in cases.items():
@@ -1034,8 +1181,8 @@ def main_path_fec(rng, run_path, out: dict) -> dict:
     check(sum(out["fec_device_in_order_k"].values()) == 0,
           "the systematic shortcut launches nothing")
     for name in ("whole_share", "scattered"):
-        check(out[f"fec_device_{name}"]["fused_encode"] > 0,
-              f"K1 launched on fec_device_{name}")
+        check(out[f"fec_device_{name}"]["fused_split"] > 0,
+              f"K5 launched on fec_device_{name}")
 
     fec16 = FEC(10, 14, field="gf65536", bw_route="device")
     shares16 = fec16.encode_shares(payload)
@@ -1043,8 +1190,8 @@ def main_path_fec(rng, run_path, out: dict) -> dict:
     got16, out["fec16_device_whole_share"] = run_path(
         lambda: fec16.decode(case16))
     check(got16 == payload, "GF(2^16) FEC whole_share returns the payload")
-    check(out["fec16_device_whole_share"]["fused_encode"] > 0,
-          "K1 launched on fec16_device_whole_share")
+    check(out["fec16_device_whole_share"]["fused_split"] > 0,
+          "K5 launched on fec16_device_whole_share")
     report["gf65536_device"] = dict(fec16.stats)
     return {"fec": {"payload_bytes": len(payload), "shares": 14,
                     "scatter_columns": [FEC_SCATTER, FEC_SCATTER2],
@@ -1098,6 +1245,9 @@ def phase_main_path(rng, codecs: dict) -> dict:
     (enc42, joined42), out["rs_4_2"] = run_path(rs_4_2)
     piped, out["pipeline"] = run_path(
         lambda: codec.matmul_stripes(rs.G[10:], forced, tier="pipeline"))
+    # K1 runs where it is forced: the planner takes K5 first (PERF.md).
+    fused1, out["fused_forced"] = run_path(
+        lambda: codec.matmul_stripes(rs.G[10:], forced, tier="fused"))
 
     # The panel route. Planning a new matrix is host work: the recovery
     # matrices are planned (and timed) before their path runs.
@@ -1149,8 +1299,12 @@ def phase_main_path(rng, codecs: dict) -> dict:
     check(joined42 == small, "RS(4,2) round trip")
     check(np.array_equal(piped, host_matvec(rs.gf, rs.G[10:], forced)),
           "forced pipeline")
+    check(np.array_equal(fused1, piped), "forced K1")
     for path in ("rs_10_4", "batch", "rs_4_2"):
-        check(out[path]["fused_encode"] > 0, f"fused kernel launched on {path}")
+        check(out[path]["fused_split"] > 0, f"K5 launched on {path}")
+    check(out["fused_forced"]["fused_encode"] == 1
+          and sum(out["fused_forced"].values()) == 1,
+          "the forced product ran on K1 alone")
     for name in ("pack_lanes", "gf2mm_sparse", "unpack_lanes"):
         check(out["pipeline"][name] > 0, f"{name} launched on the pipeline")
 
@@ -1184,7 +1338,8 @@ def phase_main_path(rng, codecs: dict) -> dict:
         for name in ("pack_lanes_blocked", "gf2mm_panel",
                      "unpack_lanes_blocked"):
             check(out[path][name] > 0, f"{name} launched on {path}")
-    check(out["rs_200_56"]["fused_encode"] == 0,
+    check(out["rs_200_56"]["fused_encode"] == 0
+          and out["rs_200_56"]["fused_split"] == 0,
           "RS(200,56) runs no fused-kernel launch")
     gf16_report = main_path_gf16(rng, run_path, out)
     stream_report = main_path_streams(rng, run_path, out)
@@ -1230,8 +1385,7 @@ def phase_times(rng, device, results: dict) -> dict:
     words = rand_words(rng, (10, TW), device)
     W8 = TW // 64
     groups = TW // 8
-    kind, f_threads, f_prog, _ = codec.plan_for(M)
-    check(kind == "fused", "RS(10,4) plans onto the fused kernel")
+    _, f_threads, f_prog, _ = codec.plan_for(M, "fused")
     _, p_threads, p_prog, _ = codec.plan_for(M, "pipeline")
     planes = pack_words_lanes(words, 512)
     planes80 = planes.reshape(80, 8, W8)
@@ -1319,6 +1473,14 @@ def panel_xors(bits_rows: tuple, c0: int, c1: int) -> int:
     return xors + sum(max(n - 1, 0) for n in blocks)
 
 
+def core_floor(R: int, C: int, W: int) -> float:
+    """The product core's own operation floor, ms: one LOP3 (acc ^= mask &
+    plane) for each of the R x C mask words on each of W plane words, at
+    the logic-op peak (the dense product the core runs, not the factored
+    network the bound charges)."""
+    return R * C * W / INT_OPS_PER_S * 1e3
+
+
 def panel_bound(bits_rows: tuple, c0: int, c1: int, acc: bool,
                 P: int) -> tuple:
     """(bound_ms, bound_by) of one panel-matmul launch over input planes
@@ -1382,33 +1544,33 @@ def phase_panel_times(rng, device, results: dict) -> dict:
     timer = Timer(device)
     codec = DeviceCodec(device=device)
     _, M = rs_200_56_parity()
-    _, threads, prog, _ = codec.plan_for(M)
+    _, threads, tiles, _ = codec.plan_for(M)
     bits_rows = codec.bits_rows_for(M)
     W8 = TW // 64
     P = 8 * W8
     groups = TW // 8
     words = rand_words(rng, (200, TW), device)
     planes = pack_words_lanes_blocked(words).reshape(1600, 8, W8)
-    parity_planes = gf2_matmul_panel(prog, planes, threads).reshape(
+    parity_planes = gf2_matmul_panel(tiles, planes, threads).reshape(
         56, 8, 8, W8)
     # The accumulating launch over the middle of the reference's G = 3
-    # sub-launches, in the plan's K blocks.
-    G3 = sublaunch_count(codec._xor_cost_for(M), prog.PK)
-    lo, hi = sublaunch_bounds(prog.PK, G3)[1:3]
-    c0, c1 = lo * prog.KB, min(hi * prog.KB, 1600)
+    # sub-launches, in the plan's K tiles.
+    G3 = sublaunch_count(codec._xor_cost_for(M), tiles.NT)
+    lo, hi = sublaunch_bounds(tiles.NT, G3)[1:3]
+    c0, c1 = lo * tiles.KT, min(hi * tiles.KT, 1600)
     acc = torch.zeros((448, 8, W8), dtype=torch.int32, device=device)
     acc_plain = acc.clone()
 
     cases = {
         "gf2mm_panel": (
-            lambda: gf2_matmul_panel(prog, planes, threads),
-            lambda: gf2_matmul_panel_plain(prog, planes),
+            lambda: gf2_matmul_panel(tiles, planes, threads),
+            lambda: gf2_matmul_panel_plain(tiles, planes),
             PLAIN_PANEL_REPS, panel_bound(bits_rows, 0, 1600, False, P),
         ),
         "gf2mm_panel_acc": (
-            lambda: gf2_matmul_panel(prog, planes, threads, acc=acc,
+            lambda: gf2_matmul_panel(tiles, planes, threads, acc=acc,
                                      k_slice=(lo, hi)),
-            lambda: gf2_matmul_panel_plain(prog, planes, acc=acc_plain,
+            lambda: gf2_matmul_panel_plain(tiles, planes, acc=acc_plain,
                                            k_slice=(lo, hi)),
             PLAIN_PANEL_REPS, panel_bound(bits_rows, c0, c1, True, P),
         ),
@@ -1429,8 +1591,9 @@ def phase_panel_times(rng, device, results: dict) -> dict:
             plain_ms=timer.median_ms(plain, plain_reps, warmup=False),
             bound_ms=b_ms, bound_by=b_by,
         )
-    results["gf2mm_panel"]["plan_xors"] = prog.cost
     results["gf2mm_panel"]["bound_xors"] = panel_xors(bits_rows, 0, 1600)
+    own_floor = {"gf2mm_panel": core_floor(448, 1600, P),
+                 "gf2mm_panel_acc": core_floor(448, c1 - c0, P)}
 
     words_ms = timer.median_ms(lambda: codec.matmul_words(M, words))
     rs = ReedSolomon(200, 56, device=str(device))
@@ -1464,17 +1627,21 @@ def phase_panel_times(rng, device, results: dict) -> dict:
     for name, (Mx, tw) in panel_matrices(rs._dev).items():
         _, t, pg, _ = rs._dev.plan_for(Mx)
         br = rs._dev.bits_rows_for(Mx)
+        Px = 8 * (tw // 64)
         x = rand_words(rng, (pg.n_inputs, 8, tw // 64), device)
-        b_ms, b_by = panel_bound(br, 0, pg.n_inputs, False, 8 * (tw // 64))
+        b_ms, b_by = panel_bound(br, 0, pg.n_inputs, False, Px)
         by_matrix[name] = {
-            "shard_bytes": 4 * tw, "KB": pg.KB, "RB": pg.RB, "threads": t,
-            "plan_xors": pg.cost, "bound_xors": panel_xors(br, 0, pg.n_inputs),
+            "shard_bytes": 4 * tw, "KT": pg.KT, "row_group": pg.RGR,
+            "WC": pg.WC, "threads": t,
+            "bound_xors": panel_xors(br, 0, pg.n_inputs),
             "ms": timer.median_ms(lambda: gf2_matmul_panel(pg, x, t)),
             "bound_ms": b_ms, "bound_by": b_by,
+            "own_floor_ms": core_floor(pg.n_rows, pg.n_inputs, Px),
         }
     data_bytes = 200 * SHARD
     return {
         "phase": "panel_times", "reps": REPS, "wide_reps": WIDE_REPS,
+        "own_floor_ms": own_floor,
         "plain_panel_reps": PLAIN_PANEL_REPS,
         "acc_k_slice": [lo, hi], "threads": threads,
         "gf2mm_panel_by_matrix": by_matrix,
@@ -1634,20 +1801,34 @@ def phase_gf16_times(rng, device, results: dict) -> dict:
 
 
 def phase_split_times(rng, device, results: dict) -> dict:
-    """K5 at RS(50,20), 1 MiB shards, beside its bound and its plain
-    version, and on the (20, 50) recovery matrix; the codec on the same
-    parity through K5 and through the forced pipeline; K1 at its plan and
-    K5 forced on RS(30,10) and RS(40,12); streaming encode and decode GB/s
-    from host bytes at RS(17,3) and RS(50,20), with the device's share of
-    the wall time."""
-    from noise_ec_tpu_torch.matrix import generator_matrix
+    """K5 at RS(50,20), 1 MiB shards, beside its bound, its own operation
+    floor and its plain version, and on the (20, 50) recovery matrix;
+    beside it the K9 -> K11 -> K9 chain on the same matrix and words (a
+    yardstick from the same card); the codec on the same parity through K5
+    and through the forced pipeline; K1 at its plan against K5 on RS(4,2),
+    RS(10,4), RS(17,3), RS(30,10), RS(40,12) and RS(50,20) (the evidence
+    for the planner's order); the seconds to plan a new RS(50,20) recovery
+    matrix, and those of the factoring the K1-first planner ran for it;
+    streaming encode and decode GB/s from host bytes at RS(17,3) and
+    RS(50,20), with the device's share of the wall time."""
+    from noise_ec_tpu_torch.gf import expand_generator_masks
+    from noise_ec_tpu_torch.matrix import (
+        generator_matrix,
+        reconstruction_matrix,
+    )
     from noise_ec_tpu_torch.ops.dispatch import DeviceCodec
     from noise_ec_tpu_torch.ops.fused import (
         fused_encode_words,
+        fused_plan,
         fused_split_encode_words,
         fused_split_encode_words_plain,
     )
-    from noise_ec_tpu_torch.ops.network import compile_network
+    from noise_ec_tpu_torch.ops.gf2mm import gf2_matmul_dense
+    from noise_ec_tpu_torch.ops.network import compile_network, compile_split
+    from noise_ec_tpu_torch.ops.pack import (
+        pack_words_sublane,
+        unpack_words_sublane,
+    )
     from noise_ec_tpu_torch.parallel import StreamingDecoder, StreamingEncoder
 
     timer = Timer(device)
@@ -1666,49 +1847,112 @@ def phase_split_times(rng, device, results: dict) -> dict:
         return bound((k + r) * SHARD, xors * groups
                      + (k + r) * groups * TRANSPOSE_OPS) + (xors,)
 
+    def split_floor(r, k):
+        """K5's own floor: the core's dense product and the transposes."""
+        return (core_floor(8 * r, 8 * k, groups)
+                + (k + r) * groups * TRANSPOSE_OPS / INT_OPS_PER_S * 1e3)
+
     M = G[50:]
-    _, threads, prog, _ = codec.plan_for(M)
+    _, threads, tiles, _ = codec.plan_for(M)
     words = rand_words(rng, (50, TW), device)
     b_ms, b_by, b_xors = matrix_bound(M)
     results["fused_split"].update(
         ms=timer.median_ms(
-            lambda: fused_split_encode_words(prog, words, 20, threads)),
+            lambda: fused_split_encode_words(tiles, words, 20, threads)),
         plain_ms=timer.median_ms(
-            lambda: fused_split_encode_words_plain(prog, words, 20, 512),
+            lambda: fused_split_encode_words_plain(tiles, words, 20, 512),
             PLAIN_PANEL_REPS, warmup=False),
-        bound_ms=b_ms, bound_by=b_by, bound_xors=b_xors,
-        plan_xors=prog.cost, threads=threads, ksl=prog.ksl,
+        bound_ms=b_ms, bound_by=b_by, bound_xors=b_xors, threads=threads,
+        ksl=tiles.KT // 8, WC=tiles.WC,
     )
-    _, rt, rprog, _ = codec.plan_for(R)
+    _, rt, rtiles, _ = codec.plan_for(R)
     r_ms, r_by, r_xors = matrix_bound(R)
-    recovery = {"threads": rt, "ksl": rprog.ksl, "xors": rprog.cost,
+    recovery = {"threads": rt, "ksl": rtiles.KT // 8,
                 "bound_ms": r_ms, "bound_by": r_by, "bound_xors": r_xors,
+                "own_floor_ms": split_floor(20, 50),
                 "ms": timer.median_ms(
-                    lambda: fused_split_encode_words(rprog, words, 20, rt))}
+                    lambda: fused_split_encode_words(rtiles, words, 20, rt))}
     words_ms = timer.median_ms(lambda: codec.matmul_words(M, words))
     pipe_ms = timer.median_ms(
         lambda: codec.matmul_words(M, words, tier="pipeline"))
 
+    # The yardstick: the same product unfused, K9 pack -> K11 on the
+    # (160, 400) select masks -> K9 unpack.
+    masks = torch.from_numpy(expand_generator_masks(gf, M)).to(device)
+    W = TW // 8
+
+    def chain():
+        planes = pack_words_sublane(words).reshape(400, W)
+        return unpack_words_sublane(
+            gf2_matmul_dense(masks, planes).reshape(20, 8, W))
+
+    check(torch.equal(chain(), fused_split_encode_words(tiles, words, 20,
+                                                        threads)),
+          "K9 -> K11 -> K9 vs K5 on RS(50,20)")
+    chain_ms = timer.median_ms(chain)
+
     k1_vs_k5 = {}
-    for k, r in ((30, 10), (40, 12)):
+    for k, r in ((4, 2), (10, 4), (17, 3), (30, 10), (40, 12), (50, 20)):
         Mx = generator_matrix(gf, k, k + r, "cauchy")[k:]
-        kind, t1, p1, _ = codec.plan_for(Mx)
-        check(kind == "fused", f"RS({k},{r}) plans onto K1")
-        _, t5, p5, _ = codec.plan_for(Mx, "split")
+        kind, t5, p5, _ = codec.plan_for(Mx)
+        check(kind == "split", f"RS({k},{r}) plans onto K5")
         w = rand_words(rng, (k, TW), device)
-        check(torch.equal(fused_encode_words(p1, w, r, t1),
-                          fused_split_encode_words(p5, w, r, t5)),
-              f"RS({k},{r}) K1 vs K5")
         bms, bby, bxors = matrix_bound(Mx)
-        row = {"bound_ms": bms, "bound_by": bby, "bound_xors": bxors}
-        for name, fn, t, pg in (
-                ("k1", lambda: fused_encode_words(p1, w, r, t1), t1, p1),
-                ("k5", lambda: fused_split_encode_words(p5, w, r, t5), t5,
-                 p5)):
-            row[name] = {"threads": t, "slots": pg.n_slots, "xors": pg.cost,
-                         "ms": timer.median_ms(fn)}
-        row["k5"]["ksl"] = p5.ksl
+        row = {"bound_ms": bms, "bound_by": bby, "bound_xors": bxors,
+               "k5": {"threads": t5, "ksl": p5.KT // 8,
+                      "own_floor_ms": split_floor(r, k),
+                      "ms": timer.median_ms(
+                          lambda: fused_split_encode_words(p5, w, r, t5))}}
+        if fused_plan(codec.bits_rows_for(Mx), 8 * k) is not None:
+            _, t1, p1, _ = codec.plan_for(Mx, "fused")
+            check(torch.equal(fused_encode_words(p1, w, r, t1),
+                              fused_split_encode_words(p5, w, r, t5)),
+                  f"RS({k},{r}) K1 vs K5")
+            row["k1"] = {"threads": t1, "slots": p1.n_slots,
+                         "xors": p1.cost, "ms": timer.median_ms(
+                             lambda: fused_encode_words(p1, w, r, t1))}
         k1_vs_k5[f"RS({k},{r})"] = row
+
+    # The same race at the main path's small shards: the plugin's RS(4,2)
+    # on a 64 KiB message (16 KiB shards) and 64 KiB FEC and hardware-check
+    # shares. A words entry pads a shard to the lane quantum (32 KiB), so
+    # the kernels see 8,192 words at 16 and 32 KiB shards and 16,384 at
+    # 64 KiB. K5's default K split applies (a memset and atomic XORs where
+    # the grid is narrow).
+    k1_vs_k5_small = {}
+    for k, r in ((4, 2), (10, 4), (17, 3)):
+        Mx = generator_matrix(gf, k, k + r, "cauchy")[k:]
+        _, t5, p5, _ = codec.plan_for(Mx)
+        _, t1, p1, _ = codec.plan_for(Mx, "fused")
+        for tw in (8192, 16384):
+            w = rand_words(rng, (k, tw), device)
+            check(torch.equal(fused_encode_words(p1, w, r, t1),
+                              fused_split_encode_words(p5, w, r, t5)),
+                  f"RS({k},{r}) K1 vs K5 at {tw} words")
+            k1_vs_k5_small[f"RS({k},{r}) {4 * tw} B"] = {
+                "k1_ms": timer.median_ms(
+                    lambda: fused_encode_words(p1, w, r, t1)),
+                "k5_ms": timer.median_ms(
+                    lambda: fused_split_encode_words(p5, w, r, t5))}
+
+    # Planning a new RS(50,20) recovery matrix (ten other data and parity
+    # shards lost) on a codec that has not seen it, and the factoring the
+    # K1-first planner ran before it fell through to K5: K1's whole
+    # network (and its capped retries), then K5's 8- and 16-row slices.
+    other = [i + 1 for i in SPLIT_LOST]
+    present = [i for i in range(70) if i not in set(other)][:50]
+    Rn = reconstruction_matrix(gf, G, present, other)
+    fresh = DeviceCodec(device=device)
+    t0 = time.monotonic()
+    check(fresh.plan_for(Rn)[0] == "split", "new recovery plans onto K5")
+    torch.cuda.synchronize()
+    plan_s = time.monotonic() - t0
+    br = fresh.bits_rows_for(Rn)
+    t0 = time.monotonic()
+    k1_plan = fused_plan(br, 400) is not None
+    for ksl in (8, 16):
+        compile_split(br, 50, ksl)
+    factoring_s = time.monotonic() - t0
 
     streams = {}
     for name, k, r, size, lost in (("rs_17_3", 17, 3, STREAM_17_3,
@@ -1758,7 +2002,13 @@ def phase_split_times(rng, device, results: dict) -> dict:
         "rs_50_20_matmul_words_gbps": 50 * SHARD / words_ms / 1e6,
         "rs_50_20_matmul_words_pipeline_ms": pipe_ms,
         "rs_50_20_matmul_words_bound_ms": b_ms,
-        "k1_vs_k5": k1_vs_k5, "streams": streams,
+        "rs_50_20_k9_k11_k9_ms": chain_ms,
+        "rs_50_20_new_recovery_plan_seconds": plan_s,
+        "rs_50_20_k1_first_factoring_seconds": factoring_s,
+        "rs_50_20_new_recovery_k1_plan": k1_plan,
+        "fused_split_own_floor_ms": split_floor(20, 50),
+        "k1_vs_k5": k1_vs_k5, "k1_vs_k5_small": k1_vs_k5_small,
+        "streams": streams,
     }
 
 
@@ -1895,16 +2145,21 @@ def phase_fec_times(rng, device) -> dict:
 
 
 def phase_panel_sweep(rng, device) -> dict:
-    """The panel matmul under each panel shape and each block size that
-    fits, on each matrix of :func:`panel_matrices`: the evidence for the
-    planner's panel shape."""
+    """K7 under other tile shapes than the planner's (K tile KB, rows a
+    block RB, column warps WC) on each matrix of :func:`panel_matrices`,
+    and K5 under other shapes (phase rows ksl, WC) on RS(50,20)'s parity
+    at 1 MiB shards: the evidence for the planners' shapes. Every shape's
+    product is held equal to the first."""
     from noise_ec_tpu_torch.ops.dispatch import DeviceCodec
-    from noise_ec_tpu_torch.ops.network import BLOCK_SIZES, SMEM_BYTES
-    from noise_ec_tpu_torch.ops.panel import (
-        gf2_matmul_panel,
-        panel_plan,
-        resident_threads,
+    from noise_ec_tpu_torch.ops.fused import fused_split_encode_words
+    from noise_ec_tpu_torch.ops.gf2tile import (
+        MAX_WARPS,
+        ROW_BLOCK,
+        build_tiles,
+        row_groups,
     )
+    from noise_ec_tpu_torch.ops.network import SMEM_BYTES
+    from noise_ec_tpu_torch.ops.panel import gf2_matmul_panel
 
     timer = Timer(device)
     codec = DeviceCodec(device=device)
@@ -1912,32 +2167,48 @@ def phase_panel_sweep(rng, device) -> dict:
     for name, (M, tw) in panel_matrices(codec).items():
         bits_rows = codec.bits_rows_for(M)
         C = 8 * M.shape[1]
+        nrb = -(-len(bits_rows) // ROW_BLOCK)
         planes = rand_words(rng, (C, 8, tw // 64), device)
         want = None
-        for KB, RB in ((8, 8), (8, 16), (16, 8), (16, 16), (16, 32),
-                       (32, 8), (32, 16), (32, 32), (32, 64), (64, 16),
-                       (64, 32), (128, 32)):
-            t0 = time.monotonic()
-            chosen, prog, _ = panel_plan(bits_rows, C, KB, RB)
-            prog = prog.to(device)
-            plan_s = time.monotonic() - t0
-            for threads in BLOCK_SIZES:
-                smem = (prog.n_slots + RB) * threads * 4
-                if smem > SMEM_BYTES:
-                    continue
-                out = gf2_matmul_panel(prog, planes, threads)
-                if want is None:
-                    want = out
-                check(torch.equal(out, want),
-                      f"sweep {name} KB={KB} RB={RB} T={threads}")
-                rows.append({
-                    "matrix": name, "KB": KB, "RB": RB, "threads": threads,
-                    "planner": chosen, "temp_cap": prog.temp_cap,
-                    "slots": prog.n_slots, "xors": prog.cost,
-                    "resident_threads": resident_threads(smem, threads),
-                    "plan_seconds": plan_s, "ms": timer.median_ms(
-                        lambda: gf2_matmul_panel(prog, planes, threads), 5),
-                })
+        for KB, WR, WC in itertools.product(
+                (8, 16, 32, 64), sorted({row_groups(nrb * ROW_BLOCK)[1],
+                                         -(-nrb // 2)}), (1, 2, 4)):
+            if WR * WC > MAX_WARPS:
+                continue
+            tiles = build_tiles(bits_rows, C, KB, WR=WR, WC=WC)
+            if tiles.ring_bytes > SMEM_BYTES:
+                continue
+            tiles = tiles.to(device)
+            out = gf2_matmul_panel(tiles, planes, tiles.threads)
+            if want is None:
+                want = out
+            check(torch.equal(out, want),
+                  f"sweep {name} KB={KB} WR={WR} WC={WC}")
+            rows.append({
+                "kernel": "K7", "matrix": name, "KB": KB, "RB": tiles.RGR,
+                "WC": WC, "threads": tiles.threads,
+                "ring_bytes": tiles.ring_bytes, "ms": timer.median_ms(
+                    lambda: gf2_matmul_panel(tiles, planes, tiles.threads),
+                    5)})
+    gf, G, _ = rs_50_20()
+    bits_rows = codec.bits_rows_for(G[50:])
+    words = rand_words(rng, (50, TW), device)
+    want = None
+    for ksl, WC in itertools.product((2, 4, 8, 16), (1, 2, 3)):
+        tiles = build_tiles(bits_rows, 400, 8 * ksl, WC=WC)
+        if tiles.ring_bytes > SMEM_BYTES:
+            continue
+        tiles = tiles.to(device)
+        out = fused_split_encode_words(tiles, words, 20, tiles.threads)
+        if want is None:
+            want = out
+        check(torch.equal(out, want), f"sweep K5 ksl={ksl} WC={WC}")
+        rows.append({
+            "kernel": "K5", "matrix": "RS(50,20) parity", "ksl": ksl,
+            "WC": WC, "threads": tiles.threads,
+            "ring_bytes": tiles.ring_bytes,
+            "ms": timer.median_ms(lambda: fused_split_encode_words(
+                tiles, words, 20, tiles.threads), 5)})
     return {"phase": "panel_sweep", "rows": rows}
 
 
@@ -1945,13 +2216,17 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--panel-sweep", action="store_true",
-                        help="also time the panel matmul under other plans")
+                        help="also time K7 and K5 under other tile shapes")
+    parser.add_argument("--out", help="also write every JSON line here")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from noise_ec_tpu_torch.ops.dispatch import DeviceCodec
 
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        _OUT.append(open(args.out, "w"))
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     rng = np.random.default_rng(args.seed)
@@ -2008,9 +2283,11 @@ def main() -> int:
     codecs = {"gf256": DeviceCodec(device=device),
               "gf65536": DeviceCodec(field="gf65536", device=device)}
     timed(phase_kernels, rng, device, results)
-    timed(phase_panel_kernels, rng, device, results, codecs["gf256"])
+    timed(phase_panel_kernels, rng, device, results, codecs["gf256"],
+          codecs["gf65536"])
     timed(phase_gf16_kernels, rng, device, results)
-    timed(phase_split_kernels, rng, device, results, codecs["gf256"])
+    timed(phase_split_kernels, rng, device, results, codecs["gf256"],
+          codecs["gf65536"])
     timed(phase_dense_kernels, rng, device, results)
     main_path = timed(phase_main_path, rng, codecs)
     timed(phase_times, rng, device, results)

@@ -1,97 +1,123 @@
-// K7: block-panel K-tiled GF(2) matmul — the wide-geometry XOR network.
+// K7: the block-panel K-tiled GF(2) matmul for wide geometries.
 //
 // Replaces noise_ec_tpu/ops/pallas_gf2mm.py _make_panel_kernel and
-// _make_panel_acc_kernel (one kernel here: `accumulate` selects the second).
-// (B, C, 8, W8) planes -> (B, R, 8, W8) planes; output row r is the XOR, over
-// the K blocks pk in [pk_lo, pk_hi), of panel (r / RB, pk)'s program applied
-// to input planes [pk*KB, (pk+1)*KB). The network is an operand, a
-// PanelProgram (noise_ec_tpu_torch/ops/network.py): per panel a slotted op
-// list, a row CSR and the slot of each panel-local input.
+// _make_panel_acc_kernel (one kernel here: `accumulate` selects the
+// second). (B, C, 8, W8) planes -> (B, R, 8, W8) planes over the K tiles
+// [lo, hi) of KT planes: out[r] = XOR over those planes c of bit (r, c) of
+// the matrix times plane c. With `accumulate` the sum is XORed into `out`,
+// which holds the earlier sub-launches' sum (the reference donates its
+// accumulator to the output instead).
 //
 // Bound on the H100: operations. RS(200,56) at 1 MiB shards moves 256 MiB
-// (0.08 ms at 3.35 TB/s) but runs ~150k factored XORs on each of 32,768
-// plane words. In practice the interpreted network's latency bounds it
-// (per op a warp-uniform program load, two shared-memory loads, a store),
-// so the design buys resident threads. Design: one thread owns one
-// plane-word position p, as in K4. The block's row block pr is the
-// fastest-varying part of blockIdx.x, so the PR blocks that read the same
-// input words run side by side and share them through L2. For each K block
-// the thread stages the panel's used input words into their slots (loads
-// coalesce: neighbouring threads take neighbouring words), runs the panel's
-// ops, and XORs each row into its accumulator. Slots and accumulators live
-// in shared memory laid out [slot][thread] (bank-conflict free). A thread
-// touches only its own column, so the block never synchronises. With
-// `accumulate` the accumulators start from `out` itself, which is updated
-// in place (the reference donates its accumulator to the output instead).
-#include "common.cuh"
+// (0.08 ms at 3.35 TB/s); its factored network is ~150k XORs a plane word
+// (0.29 ms), and the dense product this kernel runs is 448 x 1600 LOP3s a
+// plane word (1.41 ms at 16.7e12 LOP3/s), so the logic pipes bound it. The
+// kernel it replaces interpreted the factored network from shared-memory
+// slots, three memory operations an XOR, at few resident threads (11.4 ms).
+//
+// Design: the product core (gf2tile.cuh). A block owns `ncol` plane-word
+// columns and one row group (up to 16 warps of 32 rows); its warps keep
+// their rows' accumulators in registers and read the masks as broadcasts,
+// so the logic pipes, not memory operations, set the pace. The ring stages
+// K tile t+1's planes and masks with cp.async while tile t's product runs,
+// and every warp of the block reads the one staged copy of the planes.
+// Where the columns do not fill the card (RS(229,6) at 64 KiB shards:
+// 2,048 words a plane), the launch splits the K tiles over `ksplit` blocks
+// a column tile, which XOR their partial sums into the output atomically.
+#include "gf2tile.cuh"
 
 namespace {
 
-__global__ void panel_kernel(const uint32_t* __restrict__ in,
-                             uint32_t* out, long long P, int C, int R, int KB,
-                             int RB, int PK, int pk_lo, int pk_hi,
-                             int accumulate, const int* __restrict__ ops,
-                             const int* __restrict__ op_ptr,
-                             const int* __restrict__ row_ptr,
-                             const int* __restrict__ row_terms,
-                             const int* __restrict__ in_slot, int n_slots) {
-  extern __shared__ uint32_t smem[];
-  const int T = blockDim.x;
-  const int tid = threadIdx.x;
-  const int PR = (R + RB - 1) / RB;
-  const int pr = blockIdx.x % PR;
-  const long long p = (long long)(blockIdx.x / PR) * T + tid;
-  if (p >= P) return;
-  const long long b = blockIdx.y;
-  const uint32_t* src = in + b * C * P + p;
-  uint32_t* dst = out + (b * R + (long long)pr * RB) * P + p;
-  uint32_t* slots = smem;
-  uint32_t* acc = smem + n_slots * T;
-  const int rows = min(RB, R - pr * RB);
-  for (int r = 0; r < rows; ++r) {
-    acc[r * T + tid] = accumulate ? dst[(long long)r * P] : 0u;
-  }
-  for (int pk = pk_lo; pk < pk_hi; ++pk) {
-    const int panel = pr * PK + pk;
-    const int* slot_of = in_slot + (long long)panel * KB;
-    const uint32_t* col = src + (long long)pk * KB * P;
-    // Only planes a term of this panel reads have a slot, and padding
-    // columns past C have none, so no load leaves the input.
-    for (int c = 0; c < KB; ++c) {
-      const int s = __ldg(slot_of + c);
-      if (s >= 0) slots[s * T + tid] = __ldg(col + (long long)c * P);
+using namespace noise_ec::tile;
+
+__global__ void __launch_bounds__(kMaxThreads)
+    panel_kernel(const uint32_t* __restrict__ in, uint32_t* out,
+                 const uint32_t* __restrict__ masks, long long P, int C, int R,
+                 Shape s, int NT, int lo, int hi, int ksplit, int mode) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int wr = warp % s.WR;
+  const int wc = warp / s.WR;
+  const long long col0 = (long long)blockIdx.x * s.ncol;
+  const int rg = blockIdx.y;
+  const long long b = blockIdx.z / ksplit;
+  int t0, t1;
+  k_range(lo, hi, ksplit, blockIdx.z % ksplit, &t0, &t1);
+  const uint32_t* src = in + b * C * P;
+  const uint32_t* msrc = masks + (long long)rg * NT * s.mask_words();
+  const int chunks = s.ncol / 4;
+
+  auto load = [&](int t, int stage) {
+    uint32_t* st = smem + stage * s.stage_words();
+    // Planes past C have zero masks and columns past P are never stored,
+    // so their stale words are never read into a result.
+    for (int e = threadIdx.x; e < s.KT * chunks; e += blockDim.x) {
+      const int c = e / chunks;
+      const int x = 4 * (e - c * chunks);
+      const long long plane = (long long)t * s.KT + c;
+      if (plane < C && col0 + x < P) {
+        cp_async16(st + c * s.ncol + x, src + plane * P + col0 + x);
+      }
     }
-    const int op0 = __ldg(op_ptr + panel);
-    noise_ec::run_ops(ops + 3LL * op0, __ldg(op_ptr + panel + 1) - op0, slots,
-                      T, tid, nullptr, 0);
-    for (int r = 0; r < rows; ++r) {
-      acc[r * T + tid] ^= noise_ec::eval_row(row_ptr, row_terms,
-                                             panel * RB + r, slots, T, tid,
-                                             nullptr, 0);
+    stage_masks(st + s.tile_words(),
+                msrc + (long long)t * s.mask_words(), s.mask_words());
+  };
+
+  uint32_t acc[kCols][kRowBlock];
+#pragma unroll
+  for (int i = 0; i < kCols; ++i) {
+#pragma unroll
+    for (int r = 0; r < kRowBlock; ++r) acc[i][r] = 0;
+  }
+  if (t0 < t1) load(t0, 0);
+  cp_async_commit();
+  for (int t = t0; t < t1; ++t) {
+    const int stage = (t - t0) % kStages;
+    cp_async_wait_all();
+    __syncthreads();  // tile t landed; tile t-1's stage is free
+    if (t + 1 < t1) load(t + 1, (stage + 1) % kStages);
+    cp_async_commit();
+    const uint32_t* st = smem + stage * s.stage_words();
+    product(acc, st, st + s.tile_words(), s, wc * 32 * kCols + lane,
+            wr * kRowBlock);
+  }
+  const int row0 = rg * s.rgr + wr * kRowBlock;
+#pragma unroll
+  for (int i = 0; i < kCols; ++i) {
+    const long long col = col0 + wc * 32 * kCols + lane + 32 * i;
+    if (col >= P) continue;
+    uint32_t* dst = out + (b * R + row0) * P + col;
+#pragma unroll
+    for (int r = 0; r < kRowBlock; ++r) {
+      if (row0 + r < R) emit(dst + r * P, acc[i][r], mode);
     }
   }
-  for (int r = 0; r < rows; ++r) dst[(long long)r * P] = acc[r * T + tid];
 }
 
 }  // namespace
 
-extern "C" int ec_panel(const void* in, void* out, int batch, long long P,
-                        int C, int R, int KB, int RB, int PK, int pk_lo,
-                        int pk_hi, int accumulate, const void* ops,
-                        const void* op_ptr, const void* row_ptr,
-                        const void* row_terms, const void* in_slot,
-                        int n_slots, int threads, void* stream) {
-  if (batch == 0 || P == 0 || R == 0) return cudaSuccess;
-  const size_t smem = (size_t)(n_slots + RB) * threads * sizeof(uint32_t);
+// `accumulate`: out already holds a sum to XOR into. With ksplit > 1 the
+// caller has zeroed out (or it holds that sum) and the blocks XOR into it
+// atomically.
+extern "C" int ec_panel(const void* in, void* out, const void* masks,
+                        int batch, long long P, int C, int R, int KT, int NT,
+                        int NRG, int WR, int WC, int lo, int hi, int ksplit,
+                        int accumulate, void* stream) {
+  if (batch == 0 || P == 0 || R == 0 || hi <= lo) return cudaSuccess;
+  if (P % 4 != 0 || ksplit < 1 || 32 * WR * WC > kMaxThreads)
+    return (int)cudaErrorInvalidValue;
+  const Shape s{KT, WR, WC, 32 * kCols * WC, kRowBlock * WR};
+  const size_t smem = (size_t)kStages * s.stage_words() * sizeof(uint32_t);
   cudaError_t err = noise_ec::allow_smem(panel_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  const long long PR = (R + RB - 1) / RB;
-  const long long blocks = (P + threads - 1) / threads * PR;
-  if (blocks > 0x7fffffffLL || batch > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)blocks, (unsigned)batch);
-  panel_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-      (const uint32_t*)in, (uint32_t*)out, P, C, R, KB, RB, PK, pk_lo, pk_hi,
-      accumulate, (const int*)ops, (const int*)op_ptr, (const int*)row_ptr,
-      (const int*)row_terms, (const int*)in_slot, n_slots);
+  const long long cols = (P + s.ncol - 1) / s.ncol;
+  if (cols > 0x7fffffffLL || (long long)batch * ksplit > 65535 || NRG > 65535)
+    return (int)cudaErrorInvalidValue;
+  const int mode = ksplit > 1 ? kAtomicXor : (accumulate ? kXor : kStore);
+  const dim3 grid((unsigned)cols, (unsigned)NRG, (unsigned)(batch * ksplit));
+  panel_kernel<<<grid, 32 * WR * WC, smem, (cudaStream_t)stream>>>(
+      (const uint32_t*)in, (uint32_t*)out, (const uint32_t*)masks, P, C, R, s,
+      NT, lo, hi, ksplit, mode);
   return (int)cudaGetLastError();
 }

@@ -8,10 +8,13 @@ budgets), in hand-written CUDA kernels for the H100 (``csrc/``).
   and GF(2^16) words), and the byte-sliced GF(2^16) layouts
 - ``gf2mm``    — K4, the sparse GF(2) matmul over tiled planes; K11/K12,
   the dense-mask GF(2) matmul with the mask matrix as an operand
-- ``fused``    — K1, pack + network + unpack in one launch, and K5, the
-  same in K slices for networks K1 cannot hold, with their planners
-- ``panel``    — K7, the block-panel K-tiled matmul for wide geometries,
-  and its planner
+- ``fused``    — K1, pack + network + unpack in one launch, and K5, pack
+  + product + unpack in K slices on the GF(2) product core, with their
+  planners
+- ``panel``    — K7, the block-panel K-tiled matmul for wide geometries on
+  the same core, and its planner
+- ``gf2tile``  — the product core's operand (the matrix's bit expansion as
+  tiled select masks), its shared-memory fit and its plain product
 - ``mxu``      — K8, the dense GF(2) product on the tensor cores (the
   "mxu" route)
 - ``network``  — the factored XOR network (whole or cut into panels) as a

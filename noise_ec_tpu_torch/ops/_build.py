@@ -49,10 +49,10 @@ _SIGNATURES = {
     "ec_gf2mm_dense": [_p, _p, _p, _i, _i, _ll, _p],
     "ec_fused": [_p, _p, _i, _i, _i, _ll, _i, _p, _i, _p, _p, _p, _i, _i,
                  _p],
-    "ec_fused_split": [_p, _p, _i, _i, _i, _ll, _i, _i, _i, _p, _p, _p, _p,
-                       _p, _i, _i, _p],
-    "ec_panel": [_p, _p, _i, _ll, _i, _i, _i, _i, _i, _i, _i, _i, _p, _p, _p,
-                 _p, _p, _i, _i, _p],
+    "ec_fused_split": [_p, _p, _p, _i, _i, _i, _ll, _i, _i, _i, _i, _i, _i,
+                       _i, _p],
+    "ec_panel": [_p, _p, _p, _i, _ll, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i,
+                 _i, _p],
     "ec_mxu": [_p, _p, _p, _i, _i, _i, _ll, _p],
 }
 

@@ -7,11 +7,12 @@ GF(2^16). One primitive carries both reference hot loops: encode is
 caches its plan, with the operand uploaded to the card once, on one of
 three routes (:meth:`DeviceCodec.route_for`):
 
-- "baked": the reference's candidate order, with shared-memory fit where
-  the reference probes a compile: the fused kernel K1 (ops/fused.py) when
-  its slots fit, else the K-sliced fused kernel K5 (ops/fused.py) when one
-  phase's slots and the parity accumulators fit, else the K2 -> K4 -> K3
-  pipeline (ops/pack.py, ops/gf2mm.py);
+- "baked": the K-sliced fused kernel K5 (ops/fused.py) when its ring
+  fits shared memory, else the fused kernel K1 (ops/fused.py) when its
+  slots fit, else the K2 -> K4 -> K3 pipeline (ops/pack.py, ops/gf2mm.py).
+  The reference tries K1 first; K5 runs each measured matrix faster on
+  the H100 (PERF.md), so the port tries it first, and the default plan
+  factors no network;
 - "panel" (wide codes): the row-blocked pack K6 -> the block-panel matmul
   K7 (ops/panel.py) -> the row-blocked unpack;
 - "mxu" (past every XOR-network budget): the dense int8 product K8
@@ -320,13 +321,13 @@ class DeviceCodec:
         the number of launches the product's K axis is split into.
 
         On the baked route, ``tier`` None takes the planner's choice:
-        "fused" when K1's slots fit (ops/fused.py), else "split" when K5's
-        do (its operand a :class:`~noise_ec_tpu_torch.ops.network.
-        SplitProgram`), else "pipeline"; G is 1. Passing "fused", "split"
+        "split" when K5's ring fits (its operand a :class:`~noise_ec_tpu_
+        torch.ops.gf2tile.MaskTiles`), else "fused" when K1's slots do
+        (ops/fused.py), else "pipeline"; G is 1. Passing "fused", "split"
         or "pipeline" forces one, as the reference's plan override does;
         forcing "fused" or "split" on a matrix its kernel cannot hold
         raises. A panel-routed matrix plans kind "panel" with a
-        :class:`~noise_ec_tpu_torch.ops.network.PanelProgram` and the
+        :class:`~noise_ec_tpu_torch.ops.gf2tile.MaskTiles` and the
         planner's G (ops/panel.py :func:`panel_plan`); an "mxu" matrix
         plans kind "mxu" with K8's int8 bit matrix (threads None, G 1).
         Neither takes a tier."""
@@ -362,21 +363,21 @@ class DeviceCodec:
     @staticmethod
     def _baked_plan(bits_rows: tuple, C: int, tier: Optional[str]) -> tuple:
         """The baked route's (kind, threads, operand, 1) on the CPU: the
-        first of K1, K5 and the pipeline that ``tier`` allows and whose
+        first of K5, K1 and the pipeline that ``tier`` allows and whose
         plan fits (:meth:`plan_for`)."""
+        if tier in (None, "split"):
+            plan = fused_split_plan(bits_rows, C // 8, len(bits_rows) // 8)
+            if plan is not None:
+                threads, _, tiles = plan
+                return ("split", threads, tiles, 1)
+            if tier == "split":
+                raise ValueError("no split-kernel plan fits this matrix")
         if tier in (None, "fused"):
             plan = fused_plan(bits_rows, C)
             if plan is not None:
                 return ("fused",) + plan + (1,)
             if tier == "fused":
                 raise ValueError("no fused-kernel plan fits this matrix")
-        if tier in (None, "split"):
-            plan = fused_split_plan(bits_rows, C // 8, len(bits_rows) // 8)
-            if plan is not None:
-                threads, _, prog = plan
-                return ("split", threads, prog, 1)
-            if tier == "split":
-                raise ValueError("no split-kernel plan fits this matrix")
         return ("pipeline",) + sparse_plan(bits_rows, C) + (1,)
 
     # -- words entries (device-resident) ----------------------------------

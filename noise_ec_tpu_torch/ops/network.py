@@ -22,19 +22,17 @@ slots first) has no negative codes and maps input plane c to slot
 in device memory, so only temporaries take slots and a temp cap bounds
 shared memory whatever the input width.
 
-A wide network is cut into panels instead (:func:`compile_panels`): each
-(row block, K block) panel is factored and slotted on its own, and the
-panels are concatenated into one :class:`PanelProgram` for the panel
-kernel (ops/panel.py). A network too big for the fused kernel's slots is
-cut into K slices for the K-sliced fused kernel (:func:`compile_split`):
-one slotted program per slice of ksl input rows, concatenated into one
-:class:`SplitProgram` whose phases share one slot region beside the
-parity accumulators (ops/fused.py).
+A wide network can also be cut into panels (:func:`compile_panels`):
+each (row block, K block) panel factored and slotted on its own, the
+reference's per-panel factoring, whose XOR counts ``chip_smoke.py``'s
+bounds read; and into K slices (:func:`compile_split`), one slotted
+program per slice of ksl input rows, the reference's "dma" factoring. The
+kernels of those two tiers, K7 and K5, take the matrix's bit expansion
+instead (ops/gf2tile.py).
 """
 
 from __future__ import annotations
 
-import dataclasses
 import heapq
 from dataclasses import dataclass
 from typing import Optional
@@ -199,9 +197,8 @@ class PanelProgram:
     op_ptr[i+1]]``, its row r is CSR row ``i * RB + r`` of
     (``row_ptr``, ``row_terms``), and its panel-local input plane c sits
     in slot ``in_slot[i * KB + c]`` (-1 for a plane no term of the panel
-    reads). Every operand code is a slot: the kernel stages a panel's
-    inputs into their slots before it runs the panel's ops, so the panel
-    reads nothing from device memory while it runs.
+    reads). Every operand code is a slot: a panel's inputs take their
+    slots before its ops run.
     """
 
     ops: torch.Tensor  # (n_ops, 3) int32: dst slot, slot a, slot b
@@ -227,15 +224,6 @@ class PanelProgram:
     def PK(self) -> int:
         return -(-self.n_inputs // self.KB)
 
-    def to(self, device) -> "PanelProgram":
-        """The same program with its tensors on ``device``."""
-        return dataclasses.replace(
-            self, ops=self.ops.to(device), op_ptr=self.op_ptr.to(device),
-            row_ptr=self.row_ptr.to(device),
-            row_terms=self.row_terms.to(device),
-            in_slot=self.in_slot.to(device),
-        )
-
 
 def compile_panels(bits_rows: tuple, C: int, KB: int, RB: int,
                    temp_cap: int) -> PanelProgram:
@@ -244,8 +232,7 @@ def compile_panels(bits_rows: tuple, C: int, KB: int, RB: int,
     ``compile_network(..., max_temps=temp_cap, inputs_in_slots=True)``
     and concatenate them into one :class:`PanelProgram` on the CPU.
 
-    Inputs take slots: the kernel parks a panel's KB input words in shared
-    memory anyway, and a slot allocated by liveness is handed to a
+    Inputs take slots, and a slot allocated by liveness is handed to a
     temporary once its input is read for the last time, so a panel's
     peak (``n_slots``) is below KB + its temporaries."""
     panels = split_bits_rows_panels(bits_rows, C, KB, RB)
@@ -277,42 +264,6 @@ def compile_panels(bits_rows: tuple, C: int, KB: int, RB: int,
     )
 
 
-def eval_panels(prog: PanelProgram, planes: torch.Tensor,
-                k_slice: Optional[tuple[int, int]] = None,
-                acc: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain PyTorch evaluation of ``prog`` over ``planes`` (C, ...) ->
-    (R, ...): per row block, the XOR over the K blocks of ``k_slice``
-    (default all) of each panel's program, slot for slot as the kernel
-    runs it. With ``acc`` (R, ...) the sums are XORed into it in place
-    and it is returned."""
-    C, R, KB, RB = prog.n_inputs, prog.n_rows, prog.KB, prog.RB
-    if planes.shape[0] != C:
-        raise ValueError(f"program takes {C} planes, got {planes.shape[0]}")
-    lo, hi = (0, prog.PK) if k_slice is None else k_slice
-    shape = planes.shape[1:]
-    out = acc if acc is not None else planes.new_zeros((R,) + shape)
-    ops = prog.ops.tolist()
-    op_ptr = prog.op_ptr.tolist()
-    row_ptr = prog.row_ptr.tolist()
-    terms = prog.row_terms.tolist()
-    in_slot = prog.in_slot.tolist()
-    for pr in range(prog.PR):
-        for pk in range(lo, hi):
-            i = pr * prog.PK + pk
-            slots: list = [None] * prog.n_slots
-            for c in range(KB):
-                s = in_slot[i * KB + c]
-                if s >= 0:
-                    slots[s] = planes[pk * KB + c]
-            for t, a, b in ops[op_ptr[i]:op_ptr[i + 1]]:
-                slots[t] = slots[a] ^ slots[b]
-            for r in range(min(RB, R - pr * RB)):
-                e0, e1 = row_ptr[i * RB + r], row_ptr[i * RB + r + 1]
-                for e in range(e0, e1):
-                    out[pr * RB + r] ^= slots[terms[e]]
-    return out
-
-
 @dataclass(frozen=True)
 class SplitProgram:
     """A network over 8k input planes cut into P = ceil(k/ksl) phases of
@@ -327,8 +278,7 @@ class SplitProgram:
     ``p*8*ksl + c`` of the whole input) sits in slot ``in_slot[p*8*ksl +
     c]`` (-1 for a plane no term reads, and for the planes past row k of
     a short last slice). Every code in these tensors is already offset by
-    8r. ``phases`` keeps the per-phase programs, unshifted, for the plain
-    evaluation.
+    8r. ``phases`` keeps the per-phase programs, unshifted.
     """
 
     ops: torch.Tensor  # (n_ops, 3) int32: dst slot, slot a, slot b
@@ -346,15 +296,6 @@ class SplitProgram:
     @property
     def P(self) -> int:
         return len(self.phases)
-
-    def to(self, device) -> "SplitProgram":
-        """The same program with its kernel tensors on ``device``."""
-        return dataclasses.replace(
-            self, ops=self.ops.to(device), op_ptr=self.op_ptr.to(device),
-            row_ptr=self.row_ptr.to(device),
-            row_terms=self.row_terms.to(device),
-            in_slot=self.in_slot.to(device),
-        )
 
 
 def compile_split(bits_rows: tuple, k: int, ksl: int) -> SplitProgram:
@@ -383,24 +324,3 @@ def compile_split(bits_rows: tuple, k: int, ksl: int) -> SplitProgram:
         n_slots=R + max(p.n_slots for p in phases),
         cost=sum(p.cost for p in phases) + (len(phases) - 1) * R,
     )
-
-
-def eval_split(prog: SplitProgram, planes: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch evaluation of ``prog`` over ``planes`` (8k, ...) ->
-    (8r, ...): :func:`eval_program` per phase over its slice of planes
-    (zero-padded to 8·ksl for a short last slice), each phase's rows
-    XORed into the accumulators."""
-    if planes.shape[0] != prog.n_inputs:
-        raise ValueError(
-            f"program takes {prog.n_inputs} planes, got {planes.shape[0]}"
-        )
-    width = 8 * prog.ksl
-    acc = None
-    for p, phase in enumerate(prog.phases):
-        part = planes[p * width:(p + 1) * width]
-        if part.shape[0] < width:
-            part = torch.cat([part, part.new_zeros(
-                (width - part.shape[0],) + part.shape[1:])])
-        rows = eval_program(phase, part)
-        acc = rows if acc is None else acc ^ rows
-    return acc

@@ -4,18 +4,17 @@ Port of the reference's panel tier (``noise_ec_tpu.ops.pallas_gf2mm``:
 ``_make_panel_kernel`` and ``_make_panel_acc_kernel`` under
 ``gf2_matmul_pallas_panel_rows``), CUDA source ``csrc/panel.cu``. Planes
 ``(B, C, 8, W8)`` int32 -> ``(B, R, 8, W8)``: output row r is the XOR, over
-the K blocks pk of the launch's slice, of panel (r // RB, pk)'s program
-applied to input planes [pk*KB, (pk+1)*KB) (ops/network.py
-:class:`~noise_ec_tpu_torch.ops.network.PanelProgram`). Given ``acc``, the
-launch XORs its sum into ``acc`` in place — the reference's accumulating
-sub-launch, whose accumulator XLA donates to the output; here the kernel
-reads and writes the same tensor, so a chain of sub-launches allocates
-nothing.
+the input planes of the launch's K tiles, of bit (r, c) of the matrix times
+plane c. Given ``acc``, the launch XORs its sum into ``acc`` in place — the
+reference's accumulating sub-launch, whose accumulator XLA donates to the
+output; here the kernel reads and writes the same tensor, so a chain of
+sub-launches allocates nothing.
 
-Factoring runs per panel, so a network of hundreds of thousands of XORs
-plans in seconds, and a panel's live values, not the whole network's,
-decide shared memory. The planner here replaces the reference's VMEM model
-with the H100's shared memory (:func:`panel_plan`).
+The operand is the matrix's bit expansion as mask words on the GF(2)
+product core (:class:`~noise_ec_tpu_torch.ops.gf2tile.MaskTiles`): the
+reference's panel (KB input planes by RB output rows) becomes the core's
+K tile and a block's row group. No network is factored, so a new matrix
+plans in milliseconds.
 """
 
 from __future__ import annotations
@@ -25,43 +24,27 @@ from typing import Optional
 import torch
 
 from noise_ec_tpu_torch.ops import _build
-from noise_ec_tpu_torch.ops.network import (
-    BLOCK_SIZES,
-    SMEM_BYTES,
-    PanelProgram,
-    compile_panels,
-    eval_panels,
+from noise_ec_tpu_torch.ops.gf2tile import (
+    COLS,
+    MAX_WARPS,
+    ROW_BLOCK,
+    MaskTiles,
+    build_tiles,
+    check_aligned,
+    k_split,
+    masked_product_plain,
+    ring_bytes,
+    row_groups,
 )
-from noise_ec_tpu_torch.ops.xor_factor import (
-    factor_panels,
-    split_bits_rows_panels,
-)
+from noise_ec_tpu_torch.ops.network import SMEM_BYTES
 
 LAUNCHES = {"gf2mm_panel": 0, "gf2mm_panel_acc": 0}
 
-# The plan's panel shape: KB input planes by RB output rows, one shape for
-# every matrix. Measured on an H100 (chip_smoke.py --panel-sweep, PERF.md)
-# on RS(200,56)'s parity and (56,200) recovery matrices at 1 MiB shards,
-# 16 x 16 panels ran in 11.4 ms, within 4% of the fastest shape (8 x 16),
-# against 18.4 ms at 32 x 32 and 39 ms at the reference's 128 x 32: they
-# factor a little worse and re-stage the inputs once per row block, but
-# need so few slots that several times as many threads stay resident to
-# hide the network's latency. On RS(229,6)'s parity at 64 KiB shards,
-# whose grid does not fill the card, 32 x 8 ran 1.2 ms against 1.9.
-PANEL_KB = 16
-PANEL_RB = 16
-
-# A temp cap below this leaves the per-panel factoring too little room to
-# help (the reference's floor, pallas_gf2mm.panel_plan).
-MIN_TEMP_CAP = 32
-
-# One SM's shared memory (228 KB), the share the runtime keeps per resident
-# block, and the SM's thread limit: what decides how many blocks of a plan
-# are resident at once.
-_SM_SMEM_BYTES = 233_472
-_SMEM_PER_BLOCK_RESERVED = 1024
-_SM_THREADS = 2048
-_SM_BLOCKS = 32
+# The plan's block shape: K tiles of PANEL_KB planes, up to PANEL_WC column
+# warps, and one row group of all R rows where MAX_WARPS warps hold them
+# (chip_smoke.py --panel-sweep, PERF.md).
+PANEL_KB = 32
+PANEL_WC = 2
 
 # The reference's per-sub-launch raw-XOR budget (pallas_gf2mm), kept for
 # sublaunch_count: Mosaic caps one compiled program's size.
@@ -82,86 +65,41 @@ def sublaunch_bounds(PK: int, G: int) -> list[int]:
     return [round(g * PK / G) for g in range(G + 1)]
 
 
-def panel_smem_bytes(KB: int, RB: int, threads: int, temps: int) -> int:
-    """Shared memory of one K7 block: per thread, KB input slots, ``temps``
-    temporaries and RB row accumulators, 4 bytes each. (A compiled
-    program needs at most this: its inputs and temporaries share slots by
-    liveness.)"""
-    return (KB + RB + temps) * threads * 4
+def panel_plan(bits_rows: tuple, C: int) -> tuple[int, MaskTiles, int]:
+    """(threads, operand, G) for K7 over C input planes, with K tiles of
+    PANEL_KB planes and the fewest row groups of at most MAX_WARPS warps,
+    built on the CPU.
 
-
-def panel_temp_cap(KB: int, RB: int, threads: int) -> int:
-    """The largest temp count whose block still fits ``SMEM_BYTES`` at
-    (KB, RB, threads); below MIN_TEMP_CAP the shape is rejected."""
-    return SMEM_BYTES // (4 * threads) - KB - RB
-
-
-def resident_threads(smem_bytes: int, threads: int) -> int:
-    """Threads of blocks this size that one SM holds at once."""
-    blocks = min(
-        _SM_BLOCKS,
-        _SM_SMEM_BYTES // (smem_bytes + _SMEM_PER_BLOCK_RESERVED),
-        _SM_THREADS // threads,
+    The block takes the most column warps, up to PANEL_WC, whose two ring
+    stages fit SMEM_BYTES; raises ValueError when not even one does. G is
+    1: the reference splits the K axis into sub-launches only because
+    Mosaic caps the size of one compiled program (:func:`sublaunch_count`),
+    and this kernel takes its matrix as data, so nothing caps it. Callers
+    cache the plan per matrix (``DeviceCodec.plan_for``)."""
+    _, WR = row_groups(len(bits_rows))
+    rgr = ROW_BLOCK * WR
+    for wc in range(min(PANEL_WC, MAX_WARPS // WR), 0, -1):
+        if ring_bytes(PANEL_KB, 32 * COLS * wc, rgr) <= SMEM_BYTES:
+            tiles = build_tiles(bits_rows, C, PANEL_KB, WC=wc)
+            return tiles.threads, tiles, 1
+    raise ValueError(
+        f"no panel block fits shared memory for R={len(bits_rows)}, C={C} "
+        f"({WR} row warps: {ring_bytes(PANEL_KB, 32 * COLS, rgr)} bytes at "
+        f"one column warp)"
     )
-    return blocks * threads
 
 
-def panel_plan(bits_rows: tuple, C: int, KB: int = PANEL_KB,
-               RB: int = PANEL_RB) -> tuple[int, PanelProgram, int]:
-    """(threads, program, G) for K7 over C input planes, with panels of KB
-    input planes by RB output rows; the program is compiled on the CPU.
-
-    Each thread keeps its live values in shared memory, and the kernel's
-    interpreted network is bound by latency, so what counts is how many
-    threads an SM holds. The panels are factored uncapped first
-    (:func:`factor_panels`; the same factorings the program is compiled
-    from, so this costs nothing twice); the temp cap is the largest
-    panel's temp count, or, where a block of 32 threads cannot hold that,
-    the cap that fills one (the factoring then stops early). ``threads``
-    is, among the block sizes that fit at that cap, the one whose blocks
-    leave the most threads resident per SM with the compiled program's
-    own slot count, the smaller on a tie (measured 1-2% faster: the last
-    wave of blocks is shorter). Raises ValueError when even 32 threads
-    leave less than MIN_TEMP_CAP temps.
-
-    G is 1: the reference splits the K axis into sub-launches only
-    because Mosaic caps the size of one compiled program
-    (:func:`sublaunch_count`), and this kernel takes its network as data,
-    so nothing caps it. Callers cache the plan per matrix
-    (``DeviceCodec.plan_for``).
-    """
-    fit = panel_temp_cap(KB, RB, BLOCK_SIZES[-1])
-    if fit < MIN_TEMP_CAP:
-        raise ValueError(
-            f"no panel block fits shared memory for R={len(bits_rows)}, "
-            f"C={C} (KB={KB}, RB={RB}: {fit} temps at 32 threads)"
-        )
-    panels = split_bits_rows_panels(bits_rows, C, KB, RB)
-    _, need = factor_panels(panels, KB)
-    temp_cap = max(1, min(need, fit))
-    prog = compile_panels(bits_rows, C, KB, RB, temp_cap)
-    best = None
-    for threads in BLOCK_SIZES:
-        if panel_smem_bytes(KB, RB, threads, temp_cap) > SMEM_BYTES:
-            continue
-        smem = (prog.n_slots + RB) * threads * 4
-        key = (resident_threads(smem, threads), -threads)
-        if best is None or key > best[0]:
-            best = (key, threads)
-    return best[1], prog, 1
-
-
-def _check(prog: PanelProgram, planes: torch.Tensor,
+def _check(tiles: MaskTiles, planes: torch.Tensor,
            acc: Optional[torch.Tensor], k_slice) -> tuple[int, int]:
     if (planes.dtype != torch.int32 or planes.dim() not in (3, 4)
             or not planes.is_contiguous()
-            or planes.shape[-3] != prog.n_inputs
+            or planes.shape[-3] != tiles.n_inputs
             or planes.shape[-2] != 8):
         raise ValueError(
-            f"expected contiguous int32 (.., {prog.n_inputs}, 8, W8) planes, "
+            f"expected contiguous int32 (.., {tiles.n_inputs}, 8, W8) planes, "
             f"got {planes.dtype} {tuple(planes.shape)}"
         )
-    want = planes.shape[:-3] + (prog.n_rows,) + planes.shape[-2:]
+    want = planes.shape[:-3] + (tiles.n_rows,) + planes.shape[-2:]
     if acc is not None and (acc.dtype != torch.int32
                             or tuple(acc.shape) != tuple(want)
                             or not acc.is_contiguous()
@@ -171,64 +109,69 @@ def _check(prog: PanelProgram, planes: torch.Tensor,
             f"{planes.device}, got {acc.dtype} {tuple(acc.shape)} on "
             f"{acc.device}"
         )
-    lo, hi = (0, prog.PK) if k_slice is None else k_slice
-    if not 0 <= lo < hi <= prog.PK:
-        raise ValueError(f"K-block slice {k_slice} not within [0, {prog.PK}]")
+    lo, hi = (0, tiles.NT) if k_slice is None else k_slice
+    if not 0 <= lo < hi <= tiles.NT:
+        raise ValueError(f"K-block slice {k_slice} not within [0, {tiles.NT}]")
     return lo, hi
 
 
-def gf2_matmul_panel_plain(prog: PanelProgram, planes: torch.Tensor, *,
+def gf2_matmul_panel_plain(tiles: MaskTiles, planes: torch.Tensor, *,
                            acc: Optional[torch.Tensor] = None,
                            k_slice: Optional[tuple[int, int]] = None
                            ) -> torch.Tensor:
-    """Plain PyTorch K7 on (C, 8, W8) or (B, C, 8, W8) planes; with ``acc``
-    the result is XORed into it in place and returned."""
-    lo, hi = _check(prog, planes, acc, k_slice)
+    """Plain PyTorch K7 on (C, 8, W8) or (B, C, 8, W8) planes: the masked
+    product (:func:`~noise_ec_tpu_torch.ops.gf2tile.masked_product_plain`);
+    with ``acc`` the result is XORed into it in place and returned."""
+    lo, hi = _check(tiles, planes, acc, k_slice)
     if planes.dim() == 3:
-        return eval_panels(prog, planes, (lo, hi), acc)
+        return masked_product_plain(tiles, planes, (lo, hi), acc)
     # The batch rides along as a plane dimension: (C, B, 8, W8).
     acc_t = None if acc is None else acc.transpose(0, 1)
-    out = eval_panels(prog, planes.transpose(0, 1), (lo, hi), acc_t)
+    out = masked_product_plain(tiles, planes.transpose(0, 1), (lo, hi), acc_t)
     return acc if acc is not None else out.transpose(0, 1).contiguous()
 
 
-def gf2_matmul_panel(prog: PanelProgram, planes: torch.Tensor, threads: int,
+def gf2_matmul_panel(tiles: MaskTiles, planes: torch.Tensor, threads: int,
                      *, acc: Optional[torch.Tensor] = None,
-                     k_slice: Optional[tuple[int, int]] = None
-                     ) -> torch.Tensor:
+                     k_slice: Optional[tuple[int, int]] = None,
+                     ksplit: Optional[int] = None) -> torch.Tensor:
     """K7: (C, 8, W8) or (B, C, 8, W8) int32 planes -> (.., R, 8, W8) over
-    the K blocks ``k_slice`` (default all), ``threads`` threads a block.
-    With ``acc`` (the previous sub-launch's output) the sum is XORed into
-    it in place and ``acc`` is returned."""
-    lo, hi = _check(prog, planes, acc, k_slice)
+    the K tiles ``k_slice`` (default all); ``threads`` is the plan's block
+    size. With ``acc`` (the previous sub-launch's output) the sum is XORed
+    into it in place and ``acc`` is returned. ``ksplit`` splits the K tiles
+    over that many blocks a column tile (default: enough to fill the
+    card's SMs, :func:`~noise_ec_tpu_torch.ops.gf2tile.k_split`)."""
+    lo, hi = _check(tiles, planes, acc, k_slice)
+    if threads != tiles.threads:
+        raise ValueError(
+            f"operand runs {tiles.threads} threads, not {threads}")
     if planes.device.type == "cpu":
-        return gf2_matmul_panel_plain(prog, planes, acc=acc, k_slice=(lo, hi))
-    if planes.device.type != "cuda" or prog.ops.device != planes.device:
+        return gf2_matmul_panel_plain(tiles, planes, acc=acc, k_slice=(lo, hi))
+    if planes.device.type != "cuda" or tiles.masks.device != planes.device:
         raise ValueError(
-            f"no kernel for planes on {planes.device} and a program on "
-            f"{prog.ops.device}"
-        )
-    smem = (prog.n_slots + prog.RB) * threads * 4
-    if smem > SMEM_BYTES or threads not in BLOCK_SIZES:
-        raise ValueError(
-            f"{prog.n_slots} slots + {prog.RB} rows x {threads} threads do "
-            "not fit one block"
+            f"no kernel for planes on {planes.device} and an operand on "
+            f"{tiles.masks.device}"
         )
     batched = planes if planes.dim() == 4 else planes[None]
     B, C = batched.shape[:2]
     P = batched.shape[2] * batched.shape[3]
-    R = prog.n_rows
+    R = tiles.n_rows
+    if ksplit is None:
+        blocks = -(-P // tiles.ncol) * tiles.NRG * B
+        ksplit = k_split(blocks, hi - lo, planes.device)
+    if not 1 <= ksplit <= hi - lo:
+        raise ValueError(f"K split {ksplit} not within [1, {hi - lo}]")
     if acc is None:
-        out = torch.empty((B, R) + tuple(batched.shape[2:]),
-                          dtype=torch.int32, device=planes.device)
+        alloc = torch.zeros if ksplit > 1 else torch.empty
+        out = alloc((B, R) + tuple(batched.shape[2:]), dtype=torch.int32,
+                    device=planes.device)
     else:
         out = acc if acc.dim() == 4 else acc[None]
+    check_aligned(batched, out, tiles.masks)
     _build.launch(
-        "ec_panel", planes, _build.ptr(batched), _build.ptr(out), B, P, C, R,
-        prog.KB, prog.RB, prog.PK, lo, hi, int(acc is not None),
-        _build.ptr(prog.ops), _build.ptr(prog.op_ptr),
-        _build.ptr(prog.row_ptr), _build.ptr(prog.row_terms),
-        _build.ptr(prog.in_slot), prog.n_slots, threads,
+        "ec_panel", planes, _build.ptr(batched), _build.ptr(out),
+        _build.ptr(tiles.masks), B, P, C, R, tiles.KT, tiles.NT, tiles.NRG,
+        tiles.WR, tiles.WC, lo, hi, ksplit, int(acc is not None),
     )
     LAUNCHES["gf2mm_panel_acc" if acc is not None else "gf2mm_panel"] += 1
     if acc is not None:
@@ -236,14 +179,13 @@ def gf2_matmul_panel(prog: PanelProgram, planes: torch.Tensor, threads: int,
     return out if planes.dim() == 4 else out[0]
 
 
-def gf2_matmul_panel_chain(prog: PanelProgram, planes: torch.Tensor,
+def gf2_matmul_panel_chain(tiles: MaskTiles, planes: torch.Tensor,
                            threads: int, G: int) -> torch.Tensor:
     """The whole K axis in G sub-launches (:func:`sublaunch_bounds`): the
     first writes its slice's sum, each later one XORs its own in place —
     the reference's ``gf2_matmul_pallas_panel_rows`` for a plan with G."""
-    bounds = sublaunch_bounds(prog.PK, max(1, min(G, prog.PK)))
-    out = gf2_matmul_panel(prog, planes, threads, k_slice=tuple(bounds[:2]))
+    bounds = sublaunch_bounds(tiles.NT, max(1, min(G, tiles.NT)))
+    out = gf2_matmul_panel(tiles, planes, threads, k_slice=tuple(bounds[:2]))
     for lo, hi in zip(bounds[1:-1], bounds[2:]):
-        gf2_matmul_panel(prog, planes, threads, acc=out, k_slice=(lo, hi))
+        gf2_matmul_panel(tiles, planes, threads, acc=out, k_slice=(lo, hi))
     return out
-

@@ -88,7 +88,8 @@ def _checks(device: str = "cuda", *,
     words_of, bytes_of = rig.words_of, rig.bytes_of
 
     # --- tier sweep through the public dispatch (the planner picks the
-    # kernel: K1, K5 or the pipeline; the panel route past its bounds).
+    # kernel: K5, else K1 or the pipeline; the panel route past its
+    # bounds).
     geometries = [
         ("gf256", 4, 2),    # reference default RS(4,6), main.go:34-35
         ("gf256", 10, 4),   # north-star config

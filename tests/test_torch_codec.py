@@ -123,16 +123,20 @@ def test_slice_matches_numpy_backend(k, r, kind, S):
 
 
 def test_device_codec_matches_interpreted_pallas(rng):
-    """RS(10,4) through both tiers of the port equals the reference's
-    DeviceCodec in Pallas interpret mode (one interpret compile)."""
+    """RS(10,4) through every baked tier of the port (K5 by default, K1
+    and the pipeline forced) equals the reference's DeviceCodec in Pallas
+    interpret mode (one interpret compile)."""
     G = ref_generator(RefGF256(), 10, 14, "cauchy")
     D = rng.integers(0, 256, size=(10, 32768), dtype=np.uint8)
     want = RefDeviceCodec(field="gf256", kernel="pallas_interpret").matmul_stripes(
         G[10:], D
     )
     codec = DeviceCodec(device="cpu")
-    assert codec.plan_for(G[10:])[0] == "fused"
+    assert codec.plan_for(G[10:])[0] == "split"
     np.testing.assert_array_equal(codec.matmul_stripes(G[10:], D), want)
+    np.testing.assert_array_equal(
+        codec.matmul_stripes(G[10:], D, tier="fused"), want
+    )
     np.testing.assert_array_equal(
         codec.matmul_stripes(G[10:], D, tier="pipeline"), want
     )

@@ -87,11 +87,13 @@ def test_planner_picks_the_largest_block_that_fits(k, r, threads, slots):
 
 
 def test_planner_caps_temps_then_gives_up(monkeypatch):
-    """With less shared memory the planner first caps the temporaries
-    (accepting at most 1.25x the full XOR count), then returns no plan;
-    the codec then takes the K-sliced kernel K5 where one phase's slots
-    fit (RS(17,3) under a budget K1 cannot meet), and routes a matrix
-    that neither kernel holds to the pipeline."""
+    """With less shared memory K1's planner first caps the temporaries
+    (accepting at most 1.25x the full XOR count), then returns no plan.
+    The codec tries K5 first: its planner halves the phase until the ring
+    fits (RS(17,3) under a budget K1 cannot meet); the codec takes K1 where
+    K5 has no plan, and routes a matrix that neither kernel holds to the
+    pipeline."""
+    import noise_ec_tpu_torch.ops.dispatch as dispatch
     import noise_ec_tpu_torch.ops.fused as fused
     import noise_ec_tpu_torch.ops.network as network
 
@@ -110,17 +112,19 @@ def test_planner_caps_temps_then_gives_up(monkeypatch):
         threads, prog = fused.fused_plan(br, 80)
         assert threads == 32 and prog.n_slots <= 200 < full.n_slots
         assert full.cost < prog.cost <= 1.25 * full.cost
-        # RS(17,3) in 180 slots a thread at one warp: K1's cap would cost
-        # more than 1.25x, while K5 at ksl = 8 needs 172 (24 accumulators
-        # and one phase of 8 rows).
+        # RS(17,3) in 23,040 bytes: K1's cap would cost more than 1.25x;
+        # K5's ring of 4-row phases needs 24,576 bytes at one column warp,
+        # one of 2-row phases 20,480 at two.
         budget(180 * 32 * 4)
         M17 = _parity(17, 3)
         br17 = _REF.bits_rows_for(M17)
         assert fused.fused_plan(br17, 136) is None
-        kind, threads, prog, G = DeviceCodec(device="cpu").plan_for(M17)
-        assert (kind, threads, prog.ksl, prog.n_slots, G) == (
-            "split", 32, 8, 172, 1)
-        budget(100 * 32 * 4)  # 20 temps over 80 inputs cost far too much
+        kind, threads, tiles, G = DeviceCodec(device="cpu").plan_for(M17)
+        assert (kind, threads, tiles.KT, tiles.ring_bytes, G) == (
+            "split", 64, 16, 20_480, 1)
+        # Below K5's smallest ring (one-row phases, one column warp: 6,144
+        # bytes) and K1's capped slots, the pipeline.
+        budget(6_000)
         assert fused.fused_plan(br, 80) is None
         assert fused.fused_split_plan(br, 10, 4) is None
         codec = DeviceCodec(device="cpu")
@@ -130,6 +134,10 @@ def test_planner_caps_temps_then_gives_up(monkeypatch):
             codec.plan_for(M, "fused")
         with pytest.raises(ValueError, match="no split-kernel plan"):
             codec.plan_for(M, "split")
+        budget(SMEM_BYTES)
+        monkeypatch.setattr(dispatch, "fused_split_plan", lambda *a: None)
+        assert DeviceCodec(device="cpu").plan_for(M)[:2] == (
+            "fused", fused.fused_plan(br, 80)[0])
     finally:
         fused.fused_plan.cache_clear()
         fused.fused_split_plan.cache_clear()

@@ -1,9 +1,10 @@
 """The port's panel route against the reference: the plain block-panel
-matmul (K7) against the reference's panel Pallas kernel in interpret mode,
-the row-blocked pack and unpack (K6) against the reference's, the per-panel
-factoring against ``factor_panels``, the shared-memory planner's bounds,
-the three-way routing, and wide codes end to end against the reference's
-``backend="numpy"`` codec. Exact to the bit."""
+matmul (K7, the masked product of the GF(2) core) against the reference's
+panel Pallas kernel in interpret mode, the row-blocked pack and unpack (K6)
+against the reference's, the per-panel factoring against
+``factor_panels``, the planner's ring fit, the three-way routing, and wide
+codes end to end against the reference's ``backend="numpy"`` codec. Exact
+to the bit."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -40,6 +41,7 @@ from noise_ec_tpu_torch.ops import launch_counts, reset_launch_counts
 from noise_ec_tpu_torch.ops import dispatch as dispatch_mod
 from noise_ec_tpu_torch.ops import panel as panel_mod
 from noise_ec_tpu_torch.ops.dispatch import DeviceCodec
+from noise_ec_tpu_torch.ops.gf2tile import build_tiles, ring_bytes
 from noise_ec_tpu_torch.ops.network import SMEM_BYTES, compile_panels
 from noise_ec_tpu_torch.ops.pack import (
     blocked_lane_tl,
@@ -49,13 +51,10 @@ from noise_ec_tpu_torch.ops.pack import (
     unpack_words_lanes_blocked_plain,
 )
 from noise_ec_tpu_torch.ops.panel import (
-    MIN_TEMP_CAP,
     gf2_matmul_panel,
     gf2_matmul_panel_chain,
     gf2_matmul_panel_plain,
     panel_plan,
-    panel_smem_bytes,
-    panel_temp_cap,
     sublaunch_bounds,
     sublaunch_count,
 )
@@ -104,7 +103,8 @@ def _require_cuda():
 
 # The uneven geometry of the reference's own panel test
 # (tests/test_panel.py): 19 x 45 bits with an empty row, 777 words.
-# Forced plans as (KB, RB, temp_cap, G); each spans several K and R blocks.
+# Forced reference plans as (KB, RB, temp_cap, G); each spans several K and
+# R blocks there. The port's operand takes KB as its K tile.
 _FORCED = [(16, 8, 512, 1), (8, 4, 64, 1), (8, 4, 64, 2), (8, 8, 3, 3),
            (16, 4, 100_000, 3)]
 
@@ -130,38 +130,61 @@ def test_plain_panel_matches_reference_kernel(uneven, KB, RB, cap, G):
         want.reshape(19, -1)[:, :777],
         gf2_matmul_planes(bits, tiled.reshape(45, -1)[:, :777]),
     )
-    prog = compile_panels(rows, 45, KB, RB, cap)
-    assert (prog.PR, prog.PK) == (-(-19 // RB), -(-45 // KB))
+    tiles = build_tiles(rows, 45, KB)
+    assert (tiles.NRG, tiles.NT) == (1, -(-45 // KB))
     planes = torch.from_numpy(tiled.view(np.int32).copy())
     reset_launch_counts()
-    got = gf2_matmul_panel_chain(prog, planes, 32, G)
+    got = gf2_matmul_panel_chain(tiles, planes, tiles.threads, G)
     np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
     # The sub-launches by hand: the first K slice, then each later slice
     # XORed into it in place; batched planes give each batch its own rows.
-    bounds = sublaunch_bounds(prog.PK, G)
-    batch = torch.stack([planes, planes.flip(2)])
-    acc = gf2_matmul_panel(prog, batch, 32, k_slice=tuple(bounds[:2]))
+    bounds = sublaunch_bounds(tiles.NT, G)
+    batch = torch.stack([planes, planes.flip(2), planes ^ 0x0F0F0F0F])
+    acc = gf2_matmul_panel(tiles, batch, tiles.threads,
+                           k_slice=tuple(bounds[:2]))
     for lo, hi in zip(bounds[1:-1], bounds[2:]):
-        assert gf2_matmul_panel(prog, batch, 32, acc=acc,
+        assert gf2_matmul_panel(tiles, batch, tiles.threads, acc=acc,
                                 k_slice=(lo, hi)) is acc
     np.testing.assert_array_equal(acc[0].numpy().view(np.uint32), want)
-    np.testing.assert_array_equal(
-        acc[1], gf2_matmul_panel_plain(prog, planes.flip(2).contiguous())
-    )
+    for b in (1, 2):
+        np.testing.assert_array_equal(
+            acc[b], gf2_matmul_panel_plain(tiles, batch[b].contiguous()))
     assert all(n == 0 for n in launch_counts().values())
+
+
+@pytest.mark.parametrize("k,r,erasures,KB", [
+    (64, 32, None, 32), (229, 6, None, 16), (20, 4, None, 8),
+])
+def test_panel_operand_bits_equal_the_expansion(k, r, erasures, KB):
+    """K7's mask operand holds -1 exactly at the set bits of the
+    reference's expansion; the tiled layout is (row group, K tile, plane,
+    row), zero past R and C."""
+    M = _matrix(k, r, erasures)
+    bits = ref_expand(_GF, M)
+    tiles = build_tiles(_bits_rows(M), 8 * k, KB)
+    np.testing.assert_array_equal(tiles.matrix().numpy(),
+                                  -bits.astype(np.int32))
+    m = tiles.masks.numpy()
+    assert m.shape == (tiles.NRG, -(-8 * k // KB), KB, tiles.RGR)
+    assert int((m != 0).sum()) == int(bits.sum())
 
 
 def test_panel_rejects_bad_operands(uneven):
     _, tiled = uneven
-    prog = compile_panels(ref_bits_to_rows(uneven[0]), 45, 8, 4, 64)
+    tiles = build_tiles(ref_bits_to_rows(uneven[0]), 45, 8)
     planes = torch.from_numpy(tiled.view(np.int32).copy())
+    T = tiles.threads
     with pytest.raises(ValueError, match="planes"):
-        gf2_matmul_panel(prog, planes[:44].contiguous(), 32)
+        gf2_matmul_panel(tiles, planes[:44].contiguous(), T)
     with pytest.raises(ValueError, match="slice"):
-        gf2_matmul_panel(prog, planes, 32, k_slice=(3, 3))
+        gf2_matmul_panel(tiles, planes, T, k_slice=(3, 3))
     with pytest.raises(ValueError, match="acc"):
-        gf2_matmul_panel(prog, planes, 32, acc=torch.zeros((18, 8, 98),
+        gf2_matmul_panel(tiles, planes, T, acc=torch.zeros((18, 8, 98),
                                                            dtype=torch.int32))
+    with pytest.raises(ValueError, match="threads"):
+        gf2_matmul_panel(tiles, planes, 2 * T)
+    with pytest.raises(ValueError, match="no kernel"):
+        gf2_matmul_panel(tiles, planes.to("meta"), T)
 
 
 @pytest.mark.parametrize("raw,PK", [(1, 1), (130_000, 13), (130_001, 13),
@@ -233,47 +256,44 @@ def test_compile_panels_matches_reference_factoring(KB, RB, cap):
     (64, 32, tuple(range(0, 64, 2))),
 ])
 def test_every_plan_fits_shared_memory_at_its_cap(k, r, erasures):
+    """Every default plan's ring fits one block's shared memory with one
+    warp a row block (one row group where at most 16 warps hold the rows)
+    and at most 512 threads; the plan is one launch (G = 1)."""
     M = _matrix(k, r, erasures)
     br = _bits_rows(M)
     C = 8 * M.shape[1]
-    threads, prog, G = panel_plan(br, C)
-    KB, RB, cap = prog.KB, prog.RB, prog.temp_cap
-    assert G == 1 and cap >= 1
-    assert panel_smem_bytes(KB, RB, threads, cap) <= SMEM_BYTES
-    assert int(np.diff(prog.op_ptr.numpy()).max()) <= cap
-    assert prog.n_slots <= KB + cap
-    assert (prog.n_slots + RB) * threads * 4 <= SMEM_BYTES
+    threads, tiles, G = panel_plan(br, C)
+    assert G == 1 and threads == tiles.threads <= 512
+    assert tiles.ring_bytes <= SMEM_BYTES
+    assert tiles.NRG * tiles.RGR >= 8 * r > (tiles.NRG * tiles.WR - 1) * 32
+    assert tiles.NRG == -(-8 * r // 512)
+    assert tiles.NT * tiles.KT >= C
 
 
 def test_planner_reject_boundary(monkeypatch):
-    """The cap is the largest temp count that fits; the planner takes the
-    capped factoring down to MIN_TEMP_CAP temps at 32 threads and rejects
-    one byte below, and a capped plan still computes the product. (32 x
-    32 panels of RS(20,4) want more than MIN_TEMP_CAP temps.)"""
-    KB = RB = 32
-    for threads in (32, 64, 128, 256):
-        cap = panel_temp_cap(KB, RB, threads)
-        assert panel_smem_bytes(KB, RB, threads, cap) <= SMEM_BYTES
-        assert panel_smem_bytes(KB, RB, threads, cap + 1) > SMEM_BYTES
+    """The plan takes the most column warps whose ring fits: at exactly
+    the two-warp ring it takes two, a byte below one, and a byte below the
+    one-warp ring it raises. A narrowed plan still computes the product."""
+    KB = panel_mod.PANEL_KB
     M = _matrix(20, 4)
     br = _bits_rows(M)
-    assert factor_panels(split_bits_rows_panels(br, 160, KB, RB), KB)[1] > MIN_TEMP_CAP
-    edge = panel_smem_bytes(KB, RB, 32, MIN_TEMP_CAP)
-    monkeypatch.setattr(panel_mod, "SMEM_BYTES", edge)
-    threads, prog, G = panel_plan(br, 160, KB, RB)
-    assert (threads, G) == (32, 1)
-    assert (prog.KB, prog.RB, prog.temp_cap) == (KB, RB, MIN_TEMP_CAP)
-    assert int(np.diff(prog.op_ptr.numpy()).max()) == MIN_TEMP_CAP
+    two = ring_bytes(KB, 128, 32)
+    one = ring_bytes(KB, 64, 32)
+    monkeypatch.setattr(panel_mod, "SMEM_BYTES", two)
+    assert panel_plan(br, 160)[1].WC == 2
+    monkeypatch.setattr(panel_mod, "SMEM_BYTES", two - 1)
+    threads, tiles, G = panel_plan(br, 160)
+    assert (threads, tiles.WC, G) == (32, 1, 1)
     rng = np.random.default_rng(7)
     planes = _words(rng, (160, 8, 16))
     np.testing.assert_array_equal(
-        gf2_matmul_panel_plain(prog, torch.from_numpy(planes.view(np.int32)))
+        gf2_matmul_panel_plain(tiles, torch.from_numpy(planes.view(np.int32)))
         .numpy().view(np.uint32).reshape(32, -1),
         gf2_matmul_planes(ref_expand(_GF, M), planes.reshape(160, -1)),
     )
-    monkeypatch.setattr(panel_mod, "SMEM_BYTES", edge - 1)
+    monkeypatch.setattr(panel_mod, "SMEM_BYTES", one - 1)
     with pytest.raises(ValueError, match="shared memory"):
-        panel_plan(br, 160, KB, RB)
+        panel_plan(br, 160)
 
 
 # ----------------------------------------------------------------- routing
@@ -351,14 +371,29 @@ def test_forced_sublaunches_give_the_same_product(rng, monkeypatch):
 
 @pytest.mark.cuda
 def test_panel_kernel_matches_plain_on_cuda(rng):
+    """K7 against its plain version: at its plan, in the reference's three
+    sub-launches (the accumulating launch), in a forced K split, and on a
+    ragged plane width."""
     _require_cuda()
     br = _bits_rows(_matrix(64, 32))
-    threads, prog, _ = panel_plan(br, 512)
-    prog = prog.to("cuda")
+    threads, tiles, _ = panel_plan(br, 512)
+    tiles = tiles.to("cuda")
     planes = torch.from_numpy(_words(rng, (2, 512, 8, 512)).view(np.int32)).cuda()
-    want = gf2_matmul_panel_plain(prog, planes)
+    want = gf2_matmul_panel_plain(tiles, planes)
     for G in (1, 3):
-        assert torch.equal(gf2_matmul_panel_chain(prog, planes, threads, G), want)
+        assert torch.equal(gf2_matmul_panel_chain(tiles, planes, threads, G),
+                           want)
+    assert torch.equal(gf2_matmul_panel(tiles, planes, threads, ksplit=5),
+                       want)
+    acc = torch.from_numpy(_words(rng, (2, 256, 8, 512)).view(np.int32)).cuda()
+    acc_plain = acc.clone()
+    gf2_matmul_panel(tiles, planes, threads, acc=acc, k_slice=(2, 9),
+                     ksplit=3)
+    gf2_matmul_panel_plain(tiles, planes, acc=acc_plain, k_slice=(2, 9))
+    assert torch.equal(acc, acc_plain)
+    ragged = planes[:, :, :, :98].contiguous()
+    assert torch.equal(gf2_matmul_panel(tiles, ragged, threads),
+                       gf2_matmul_panel_plain(tiles, ragged))
 
 
 @pytest.mark.cuda

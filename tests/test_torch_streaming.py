@@ -228,8 +228,7 @@ def test_stream_on_cuda_matches_cpu(rng, k, r):
     data = _stream(rng, enc, 3)
     reset_launch_counts()
     got = list(enc.encode_bytes(data, depth=2))
-    kernel = "fused_split" if k == 50 else "fused_encode"
-    assert launch_counts()[kernel] > 0
+    assert launch_counts()["fused_split"] > 0
     cpu = StreamingEncoder(k, r, chunk_bytes=4 * k * 4096, device="cpu")
     for a, b in zip(got, cpu.encode_bytes(data)):
         np.testing.assert_array_equal(a.shards, b.shards)
