@@ -4,8 +4,11 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device and ``nvcc``; without a device it exits non-zero
 before printing any result. Phases (one JSON line each):
 
-1. build — build the CUDA kernels from ``noise_ec_tpu_torch/csrc`` and
-   name the card (and its power limit, from nvidia-smi);
+1. build — build the CUDA kernels from ``noise_ec_tpu_torch/csrc``, check
+   that no K8 kernel spills (ptxas) and, where the toolkit has
+   ``cuobjdump``, that the library's SASS holds wgmma (IGMMA) and no
+   mma.sync (IMMA), and name the card (and its power limit, from
+   nvidia-smi);
 2. kernels — each kernel against its plain PyTorch version on the card, at
    the main path's shapes (1 MiB shards), byte for byte, and the fused
    kernel also against the NumPy field arithmetic;
@@ -18,9 +21,13 @@ before printing any result. Phases (one JSON line each):
    with the K tiles split over four blocks, as an accumulating launch split
    over three, and on a ragged width;
    gf16_kernels — the dense GF(2) product K8 against its plain version at
-   full width on RS(200,56)'s GF(2^16) parity (1 MiB shards, 400 byte
-   rows) and on a dense (200, 200) GF(2^8) matrix, and the 16-plane pack
-   and unpack K10 at RS(10,4)'s GF(2^16) shapes, with their round trip;
+   full width (1 MiB shards) on the four matrices the main path runs it
+   on: RS(200,56)'s GF(2^16) parity and its (56, 200) and (28, 200)
+   recovery matrices over 400 byte rows, and a dense (200, 200) GF(2^8)
+   matrix (each also against the NumPy field arithmetic on a 64 KiB
+   slice), RS(200,56) in a batch of two, and an odd K (random (3, 5) bits)
+   at a ragged width in a batch of two; and the 16-plane pack and unpack
+   K10 at RS(10,4)'s GF(2^16) shapes, with their round trip;
    split_kernels — the K-sliced fused encode K5 against its plain version,
    at its plan and with its phases split over three blocks, on RS(50,20)'s
    parity and (20, 50) recovery matrix, RS(30,10), RS(40,12), GF(2^16)
@@ -72,8 +79,10 @@ before printing any result. Phases (one JSON line each):
    same three numbers for RS(200,56) at 1 MiB shards; the panel matmul
    beside its own operation floor, also on the (56,200) recovery matrix
    and on RS(229,6)'s parity;
-   gf16_times — K8 beside its bound and beside ``torch._int_mm`` on the
-   pre-expanded bits (a yardstick for the dot alone), K10 beside its byte
+   gf16_times — K8 beside its bound on RS(200,56)'s GF(2^16) parity, its
+   (28, 200) recovery matrix and the dense (200, 200) GF(2^8) matrix, and
+   beside ``torch._int_mm`` on the pre-expanded bits, row-major and
+   transposed (a yardstick for the dot alone), K10 beside its byte
    bounds, ``matmul_words_bytesliced`` and the interleaved ``matmul_words``,
    ``encode`` GB/s and ``reconstruct`` p50 at 3 and at 56 erasures over
    GF(2^16), and the seconds to plan a new recovery matrix;
@@ -95,8 +104,11 @@ Each phase's line carries its seconds.
 Then a ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
 ``--panel-sweep`` adds, before those two lines, K7's time under other
 tile shapes than the planner's, on the three panel matrices that
-``panel_times`` times, and K5's on RS(50,20). ``--out FILE``
-also writes every JSON line to FILE.
+``panel_times`` times, and K5's on RS(50,20); ``--mxu-sweep`` K8's at
+every wgmma width it is built for on RS(200,56)'s GF(2^16) parity and the
+dense GF(2^8) matrix, and the timing probes of ``csrc/mxu_probe.cu`` (K8
+with parts of its work taken away, and the bare wgmma rate). ``--out
+FILE`` also writes every JSON line to FILE.
 """
 
 from __future__ import annotations
@@ -214,6 +226,7 @@ def bound(nbytes: float, nops: float) -> tuple[float, str]:
 
 def phase_build() -> dict:
     from noise_ec_tpu_torch.ops import _build
+    from noise_ec_tpu_torch.ops.mxu import N_MENU
 
     t0 = time.monotonic()
     _build.library()
@@ -222,6 +235,15 @@ def phase_build() -> dict:
                if re.search(r"registers|spill", ln)]
         for name, log in _build.build_log.items()
     }
+    # K8 builds one kernel a wgmma width: none may spill. A build read from
+    # the checkout's cache brings its log back; a missing log fails here.
+    k8_log = [ln for ln in ptxas.get("mxu", []) if "spill" in ln]
+    check(len(k8_log) >= len(N_MENU),
+          f"ptxas log of K8's {len(N_MENU)} kernels: {k8_log}")
+    k8_spills = [ln for ln in k8_log if not re.search(
+        r"0 bytes spill stores, 0 bytes spill loads", ln)]
+    check(not k8_spills, f"K8 kernels spill: {k8_spills}")
+    sass = sass_counts(_build.build())
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -232,8 +254,26 @@ def phase_build() -> dict:
         "phase": "build", "seconds": round(time.monotonic() - t0, 3),
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
         "torch": torch.__version__, "cuda": torch.version.cuda,
-        "ptxas": ptxas,
+        "ptxas": ptxas, "sass": sass,
     }
+
+
+def sass_counts(library) -> dict:
+    """Tensor-core instructions in the built library's SASS (``cuobjdump
+    -sass``, where the toolkit has it): K8 must run on wgmma (IGMMA, the
+    integer warpgroup product), and no kernel on mma.sync (IMMA)."""
+    from noise_ec_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {"cuobjdump": "not found"}
+    text = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts = {op: len(re.findall(rf"\b{op}\b", text))
+              for op in ("IGMMA", "IMMA", "HGMMA")}
+    check(counts["IGMMA"] > 0 and counts["IMMA"] == 0,
+          f"K8 on wgmma and nothing on mma.sync: {counts}")
+    return counts
 
 
 def matrices():
@@ -522,15 +562,52 @@ def bytes_as_u16(words: torch.Tensor, ncols: int) -> np.ndarray:
         words[:, :ncols // 4].cpu().numpy().view(np.uint8))
 
 
+def k8_matrices(rng) -> dict:
+    """The four matrices the main path runs K8 on, name -> (field, M):
+    GF(2^16) RS(200,56)'s parity, its (56, 200) and (28, 200) recovery
+    matrices at the main path's 28 + 28 erasures (``reconstruct`` and
+    ``reconstruct_data``), and a dense (200, 200) GF(2^8) matrix."""
+    from noise_ec_tpu_torch.matrix import (
+        generator_matrix,
+        reconstruction_matrix,
+    )
+
+    gf16, P = rs16_200_56_parity()
+    G = generator_matrix(gf16, 200, 256, "cauchy")
+    present = [i for i in range(256) if i not in set(WIDE_LOST)][:200]
+    lost_data = [i for i in WIDE_LOST if i < 200]
+    return {
+        "rs16_200_56_parity": ("gf65536", P),
+        "rs16_56_200_recovery": ("gf65536", reconstruction_matrix(
+            gf16, G, present, list(WIDE_LOST))),
+        "rs16_28_200_recovery": ("gf65536", reconstruction_matrix(
+            gf16, G, present, lost_data)),
+        "dense_200_200_gf256": ("gf256", rng.integers(
+            1, 256, size=(200, 200), dtype=np.uint8)),
+    }
+
+
+def k8_words(rng, tiles, field: str, device, batch: int = 0) -> torch.Tensor:
+    """Random words for K8 on ``tiles`` at 1 MiB shards: (K, TW) byte rows
+    (a GF(2^16) shard's byte-sliced rows hold half of it), or (batch, K,
+    TW)."""
+    tw = TWB if field == "gf65536" else TW
+    return rand_words(rng, ((batch,) if batch else ()) + (tiles.k, tw),
+                      device)
+
+
 def phase_gf16_kernels(rng, device, results: dict) -> dict:
-    """K8 at full width on RS(200,56)'s GF(2^16) parity and a dense (200,
-    200) GF(2^8) matrix, and K10 at RS(10,4)'s GF(2^16) shapes, each against
-    its plain version on the card, K8 also against the NumPy field
-    arithmetic on a 64 KiB slice."""
-    from noise_ec_tpu_torch.gf import GF256
+    """K8 against its plain version at full width on the four matrices of
+    :func:`k8_matrices` (and against the NumPy field arithmetic on a 64 KiB
+    slice), on RS(200,56)'s parity in a batch of two, and on an odd K
+    (random (3, 5) bits) at a ragged width in a batch of two; K10 at
+    RS(10,4)'s GF(2^16) shapes."""
+    from noise_ec_tpu_torch.gf import GF256, GF65536
     from noise_ec_tpu_torch.matrix import host_matvec
     from noise_ec_tpu_torch.ops.dispatch import DeviceCodec
     from noise_ec_tpu_torch.ops.mxu import (
+        build_mxu_tiles,
+        mxu_encode_tiles,
         mxu_encode_words_bits,
         mxu_encode_words_bits_plain,
     )
@@ -542,41 +619,58 @@ def phase_gf16_kernels(rng, device, results: dict) -> dict:
     )
 
     report = {"phase": "gf16_kernels"}
-    gf16, M = rs16_200_56_parity()
-    codec16 = DeviceCodec(field="gf65536", device=device)
-    check(codec16.route_for(M) == "mxu", "GF(2^16) RS(200,56) routes mxu")
-    t0 = time.monotonic()
-    kind, _, m2, _ = codec16.plan_for(M)
-    plan_s = time.monotonic() - t0
-    words = rand_words(rng, (400, TWB), device)
-    out = mxu_encode_words_bits(m2, words, 112, 400)
-    err = max_abs_err(out, mxu_encode_words_bits_plain(m2, words, 112, 400))
-    host = host_matvec(gf16, M, bytes_as_u16(words, HOST_SLICE // 2))
+    codecs = {"gf65536": DeviceCodec(field="gf65536", device=device),
+              "gf256": DeviceCodec(device=device)}
+    gfs = {"gf65536": GF65536(), "gf256": GF256()}
+    errs = []
+    for name, (field, M) in k8_matrices(rng).items():
+        codec = codecs[field]
+        check(codec.route_for(M) == "mxu", f"{name} routes mxu")
+        t0 = time.monotonic()
+        kind, _, tiles, _ = codec.plan_for(M)
+        torch.cuda.synchronize()
+        plan_s = time.monotonic() - t0
+        words = k8_words(rng, tiles, field, device)
+        out = mxu_encode_tiles(tiles, words)
+        m2 = tiles.matrix()
+        errs.append(max_abs_err(out, mxu_encode_words_bits_plain(
+            m2, words, tiles.r, tiles.k)))
+        torch.cuda.synchronize()
+        check(errs[-1] == 0, f"K8 {name} vs plain")
+        if field == "gf65536":
+            host = host_matvec(gfs[field], M,
+                               bytes_as_u16(words, HOST_SLICE // 2))
+            got = bytes_as_u16(out, HOST_SLICE // 2)
+        else:
+            host = host_matvec(gfs[field], M, words[:, :HOST_SLICE // 4]
+                               .cpu().numpy().view(np.uint8))
+            got = out[:, :HOST_SLICE // 4].cpu().numpy().view(np.uint8)
+        check(np.array_equal(got, host),
+              f"K8 {name} vs host_matvec on a 64 KiB slice")
+        report[name] = {"kind": kind, "operand": list(m2.shape),
+                        "N": tiles.N, "row_tiles": tiles.T,
+                        "plan_seconds": plan_s, "equal": True}
+        if name == "rs16_200_56_parity":
+            pair = k8_words(rng, tiles, field, device, batch=2)
+            errs.append(max_abs_err(mxu_encode_tiles(tiles, pair),
+                                    mxu_encode_words_bits_plain(
+                                        m2, pair, tiles.r, tiles.k)))
+            check(errs[-1] == 0, "K8 RS(200,56) batch of two vs plain")
+            report[name]["batch_of_two"] = True
+    # Odd K (8K = 40 bits, not a multiple of 16 bytes) at N = 32 on four
+    # warpgroups of 64 words: TW = 8,224 words ends in half a block.
+    small = torch.from_numpy(
+        rng.integers(0, 2, size=(24, 40)).astype(np.int8)).to(device)
+    ragged = rand_words(rng, (2, 5, 8224), device)
+    got = mxu_encode_words_bits(small, ragged, 3, 5)
+    errs.append(max_abs_err(got, mxu_encode_words_bits_plain(
+        small, ragged, 3, 5)))
     torch.cuda.synchronize()
-    check(err == 0, "K8 RS(200,56) GF(2^16) vs plain")
-    check(np.array_equal(bytes_as_u16(out, HOST_SLICE // 2), host),
-          "K8 RS(200,56) GF(2^16) vs host_matvec on a 64 KiB slice")
-    report["rs16_200_56"] = {"kind": kind, "operand": list(m2.shape),
-                             "plan_seconds": plan_s, "equal": True}
-
-    gf = GF256()
-    dense = rng.integers(1, 256, size=(200, 200), dtype=np.uint8)
-    codec = DeviceCodec(device=device)
-    check(codec.route_for(dense) == "mxu", "dense (200,200) GF(2^8) routes mxu")
-    _, _, d2, _ = codec.plan_for(dense)
-    w = rand_words(rng, (200, TW), device)
-    dout = mxu_encode_words_bits(d2, w, 200, 200)
-    derr = max_abs_err(dout, mxu_encode_words_bits_plain(d2, w, 200, 200))
-    dhost = host_matvec(gf, dense,
-                        w[:, :HOST_SLICE // 4].cpu().numpy().view(np.uint8))
-    torch.cuda.synchronize()
-    check(derr == 0, "K8 dense (200,200) GF(2^8) vs plain")
-    check(np.array_equal(
-        dout[:, :HOST_SLICE // 4].cpu().numpy().view(np.uint8), dhost),
-        "K8 dense (200,200) vs host_matvec on a 64 KiB slice")
-    report["dense_200_200_gf256"] = {
-        "xor_cost": codec._xor_cost_for(dense), "equal": True}
-    results["mxu_gf2"]["max_abs_err"] = max(err, derr)
+    check(errs[-1] == 0, "K8 odd K, ragged width, batch of two vs plain")
+    report["odd_k_ragged"] = {"r": 3, "k": 5, "TW": 8224, "batch": 2,
+                              "N": build_mxu_tiles(small, 3, 5).N,
+                              "equal": True}
+    results["mxu_gf2"]["max_abs_err"] = max(errs)
 
     words16 = rand_words(rng, (10, TW), device)
     planes = pack_words16(words16)
@@ -1665,9 +1759,10 @@ def int8_bits(words: torch.Tensor) -> torch.Tensor:
 
 
 def phase_gf16_times(rng, device, results: dict) -> dict:
-    """K8 at RS(200,56) over GF(2^16) and K10 at RS(10,4) over GF(2^16),
-    1 MiB shards, beside their bounds and plain versions; the GF(2^16)
-    codec's numbers."""
+    """K8 on RS(200,56)'s GF(2^16) parity, its (28, 200) recovery matrix
+    and the dense (200, 200) GF(2^8) matrix, and K10 at RS(10,4) over
+    GF(2^16), 1 MiB shards, beside their bounds and plain versions; the
+    GF(2^16) codec's numbers."""
     from noise_ec_tpu_torch.codec import ReedSolomon
     from noise_ec_tpu_torch.gf import GF65536
     from noise_ec_tpu_torch.matrix import (
@@ -1676,7 +1771,7 @@ def phase_gf16_times(rng, device, results: dict) -> dict:
     )
     from noise_ec_tpu_torch.ops.dispatch import DeviceCodec
     from noise_ec_tpu_torch.ops.mxu import (
-        mxu_encode_words_bits,
+        mxu_encode_tiles,
         mxu_encode_words_bits_plain,
     )
     from noise_ec_tpu_torch.ops.pack import (
@@ -1688,28 +1783,61 @@ def phase_gf16_times(rng, device, results: dict) -> dict:
 
     timer = Timer(device)
     codec16 = DeviceCodec(field="gf65536", device=device)
-    _, M = rs16_200_56_parity()
-    _, _, m2, _ = codec16.plan_for(M)
-    words = rand_words(rng, (400, TWB), device)
-    N = 4 * TWB  # byte columns
-    k8_bound = max(
-        (bound(512 * 4 * TWB, 0)[0], "bytes"),
-        (2 * 896 * 3200 * N / INT8_OPS_PER_S * 1e3, "operations"))
+    codec = DeviceCodec(device=device)
+    mats = k8_matrices(rng)
+    M = mats["rs16_200_56_parity"][1]
+    k8 = {}
+    words = None
+    for name in ("rs16_200_56_parity", "rs16_28_200_recovery",
+                 "dense_200_200_gf256"):
+        field, Mx = mats[name]
+        tiles = (codec16 if field == "gf65536" else codec).plan_for(Mx)[2]
+        w = k8_words(rng, tiles, field, device)
+        rows, cols, ncols = 8 * tiles.r, 8 * tiles.k, 4 * w.shape[1]
+        b_ms, b_by = max(
+            (bound((tiles.k + tiles.r) * ncols, 0)[0], "bytes"),
+            (2 * rows * cols * ncols / INT8_OPS_PER_S * 1e3, "operations"))
+        m2 = tiles.matrix()
+        k8[name] = {
+            "operand": [rows, cols], "N": tiles.N, "row_tiles": tiles.T,
+            "byte_columns": ncols,
+            "ms": timer.median_ms(lambda: mxu_encode_tiles(tiles, w)),
+            "plain_ms": timer.median_ms(
+                lambda: mxu_encode_words_bits_plain(m2, w, tiles.r, tiles.k),
+                PLAIN_PANEL_REPS, warmup=False),
+            "bound_ms": b_ms, "bound_by": b_by}
+        if name == "rs16_200_56_parity":
+            words, m2_main = w, m2
     results["mxu_gf2"].update(
-        ms=timer.median_ms(lambda: mxu_encode_words_bits(m2, words, 112, 400)),
-        plain_ms=timer.median_ms(
-            lambda: mxu_encode_words_bits_plain(m2, words, 112, 400),
-            PLAIN_PANEL_REPS, warmup=False),
-        bound_ms=k8_bound[0], bound_by=k8_bound[1],
-    )
+        {key: k8["rs16_200_56_parity"][key]
+         for key in ("ms", "plain_ms", "bound_ms", "bound_by")})
+    # The SM clock and power while K8 runs: nvidia-smi sampled with ~1 s
+    # of RS(200,56) launches queued.
+    tiles_main = codec16.plan_for(M)[2]
+    for _ in range(400):
+        mxu_encode_tiles(tiles_main, words)
+    k8_clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+         "power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    torch.cuda.synchronize()
     # The tensor cores' own int8 product on bits expanded beforehand: the
-    # dot alone, with no unpack, parity or repack (not the same function).
-    bits = int8_bits(words)
-    try:
-        int_mm_ms = timer.median_ms(lambda: torch._int_mm(m2, bits))
-    except RuntimeError as exc:
-        int_mm_ms = f"failed: {exc}"
-    del bits
+    # dot alone, with no unpack, parity or repack (not the same function),
+    # on row-major (3200, N) bits and on the transpose of contiguous (N,
+    # 3200) bits (cuBLAS's column-major B); the faster is the yardstick.
+    int_mm = {}
+    for layout in ("row_major", "transposed"):
+        bits = int8_bits(words)
+        if layout == "transposed":
+            bits = bits.t().contiguous().t()
+        try:
+            int_mm[layout] = timer.median_ms(
+                lambda: torch._int_mm(m2_main, bits))
+        except RuntimeError as exc:
+            int_mm[layout] = f"failed: {exc}"
+        del bits
+    timed_layouts = {k: v for k, v in int_mm.items() if isinstance(v, float)}
+    best = min(timed_layouts, key=timed_layouts.get) if timed_layouts else None
 
     groups16 = TW // 16
     words16 = rand_words(rng, (10, TW), device)
@@ -1778,7 +1906,11 @@ def phase_gf16_times(rng, device, results: dict) -> dict:
 
     return {
         "phase": "gf16_times", "reps": REPS, "wide_reps": WIDE_REPS,
-        "mxu_gf2_int_mm_ms": int_mm_ms,
+        "mxu_gf2_by_matrix": k8,
+        "mxu_gf2_clocks_under_load": k8_clocks,
+        "mxu_gf2_int_mm_ms": int_mm[best] if best else None,
+        "mxu_gf2_int_mm_layout": best,
+        "mxu_gf2_int_mm_by_layout": int_mm,
         "mxu_gf2_int_mm_note": ("torch._int_mm(M2, bits) on bits expanded "
                                 "beforehand: the dot alone"),
         "rs16_10_4_matmul_words_bytesliced_ms": bs10_ms,
@@ -2212,11 +2344,90 @@ def phase_panel_sweep(rng, device) -> dict:
     return {"phase": "panel_sweep", "rows": rows}
 
 
+def phase_mxu_sweep(rng, device) -> dict:
+    """K8 at every width of ``ops/mxu.py`` N_MENU on RS(200,56)'s GF(2^16)
+    parity and the dense (200, 200) GF(2^8) matrix at 1 MiB shards (the
+    evidence for ``tile_width``), each width first held equal to the plain
+    version on a batch of two at a ragged width. Then the probes of
+    ``csrc/mxu_probe.cu``: on RS(200,56) at N = 128 and 224, K8 with its A
+    fragments held constant, without its M2 copies, and both; and a bare
+    wgmma loop's int8 rate on every SM, against the rate of the bound."""
+    from noise_ec_tpu_torch.ops import _build
+    from noise_ec_tpu_torch.ops.dispatch import DeviceCodec
+    from noise_ec_tpu_torch.ops.mxu import (
+        N_MENU,
+        build_mxu_tiles,
+        mxu_encode_tiles,
+        mxu_encode_words_bits_plain,
+    )
+
+    timer = Timer(device)
+    mats = k8_matrices(rng)
+    lib = _build.probe_library()
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    rows, probes = [], []
+    for name, codec in (
+            ("rs16_200_56_parity", DeviceCodec(field="gf65536",
+                                               device=device)),
+            ("dense_200_200_gf256", DeviceCodec(device=device))):
+        field, M = mats[name]
+        planned = codec.plan_for(M)[2]
+        m2, r, k = planned.matrix(), planned.r, planned.k
+        words = k8_words(rng, planned, field, device)
+        want = mxu_encode_tiles(planned, words)
+        small = rand_words(rng, (2, k, 352), device)
+        small_want = mxu_encode_words_bits_plain(m2, small, r, k)
+        for N in N_MENU:
+            tiles = build_mxu_tiles(m2, r, k, N)
+            check(torch.equal(mxu_encode_tiles(tiles, small), small_want),
+                  f"sweep {name} N={N} ragged batch")
+            check(torch.equal(mxu_encode_tiles(tiles, words), want),
+                  f"sweep {name} N={N}")
+            rows.append({
+                "matrix": name, "N": N, "row_tiles": tiles.T,
+                "planned": N == planned.N, "ms": timer.median_ms(
+                    lambda: mxu_encode_tiles(tiles, words), 5)})
+            if name != "rs16_200_56_parity" or N == 32:
+                continue
+            out = torch.empty_like(want)
+
+            def run(probe):
+                _build.launch(
+                    "ec_mxu_probe", words, _build.ptr(tiles.tiles),
+                    _build.ptr(words), _build.ptr(out), 1, r, k,
+                    words.shape[1], N, tiles.T, tiles.NCH, sms, probe,
+                    lib=lib)
+
+            run(0)
+            check(torch.equal(out, want), f"probe build of K8 N={N}")
+            for probe, what in ((0, "K8"), (1, "A fragments constant"),
+                                (2, "no M2 copies"), (3, "both")):
+                probes.append({"matrix": name, "N": N, "probe": what,
+                               "ms": timer.median_ms(lambda: run(probe), 5)})
+    sink = torch.zeros(1, dtype=torch.int32, device=device)
+    iters = 4000
+    for N, groups in ((128, 4), (224, 2)):
+        ms = timer.median_ms(lambda: _build.launch(
+            "ec_wgmma_peak", sink, N, sms, iters, _build.ptr(sink), lib=lib),
+            5)
+        ops = sms * groups * iters * 4 * 2 * 64 * N * 32
+        probes.append({"probe": "bare wgmma", "N": N, "warpgroups": groups,
+                       "blocks": sms, "ms": ms,
+                       "int8_ops_per_s": ops / ms * 1e3,
+                       "share_of_bound_rate": ops / ms * 1e3
+                       / INT8_OPS_PER_S})
+    return {"phase": "mxu_sweep", "rows": rows, "probes": probes,
+            "ptxas_probe": [ln.strip() for ln in _build.build_log.get(
+                "mxu_probe", "").splitlines() if "spill" in ln]}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--panel-sweep", action="store_true",
                         help="also time K7 and K5 under other tile shapes")
+    parser.add_argument("--mxu-sweep", action="store_true",
+                        help="also time K8 at every width and its probes")
     parser.add_argument("--out", help="also write every JSON line here")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -2298,6 +2509,8 @@ def main() -> int:
     timed(phase_fec_times, rng, device)
     if args.panel_sweep:
         timed(phase_panel_sweep, rng, device)
+    if args.mxu_sweep:
+        timed(phase_mxu_sweep, rng, device)
     kernels = []
     for name, res in results.items():
         res["launches"] = main_path["launches"][name]

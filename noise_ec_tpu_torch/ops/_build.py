@@ -5,8 +5,12 @@ interface (``nvcc -gencode arch=compute_90a,code=sm_90a``), built at first
 use into ``_build/`` (listed in ``.gitignore``) under a name keyed on a
 hash of the sources and flags, so a checkout builds its own kernels and an
 edited source is rebuilt. Each source compiles in its own ``nvcc``, all at
-once, and one more links them. Without ``nvcc`` this raises: there is no
-other route to the kernels.
+once, and one more links them. What ``ptxas`` printed for each source is
+kept beside the library (``.ptxas.json``) and read back on a cached build,
+so :data:`build_log` is filled either way. Without ``nvcc`` this raises:
+there is no other route to the kernels. :func:`probe_library` builds K8's
+timing probes (``csrc/mxu_probe.cu``) the same way, as a library of their
+own.
 
 Every C entry returns ``cudaGetLastError()`` after its launch; :func:`launch`
 raises on anything but 0, since a refused launch never runs and no later
@@ -17,6 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import json
 import os
 import shutil
 import subprocess
@@ -30,6 +35,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("pack", "gf2mm", "fused", "panel", "mxu")
+PROBE_SOURCES = ("mxu_probe",)
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -53,12 +59,17 @@ _SIGNATURES = {
                        _i, _p],
     "ec_panel": [_p, _p, _p, _i, _ll, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i,
                  _i, _p],
-    "ec_mxu": [_p, _p, _p, _i, _i, _i, _ll, _p],
+    "ec_mxu": [_p, _p, _p, _i, _i, _i, _ll, _i, _i, _i, _i, _p],
+}
+_PROBE_SIGNATURES = {
+    "ec_mxu_probe": [_p, _p, _p, _i, _i, _i, _ll, _i, _i, _i, _i, _i, _p],
+    "ec_wgmma_peak": [_i, _i, _i, _p, _p],
 }
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
-# What the last build printed per source (nvcc -Xptxas=-v: registers,
+_probe_lib: Optional[ctypes.CDLL] = None
+# What the build of each source printed (nvcc -Xptxas=-v: registers,
 # shared memory and spills per kernel), for chip_smoke.py.
 build_log: dict[str, str] = {}
 
@@ -77,19 +88,24 @@ def nvcc_path() -> str:
     )
 
 
-def build() -> Path:
-    """Build the kernel library unless this checkout's build exists;
-    returns its path. Raises with nvcc's output when a step fails."""
+def build(sources: tuple = SOURCES,
+          stem: str = "libnoise_ec_kernels") -> Path:
+    """Build the library of ``sources`` unless this checkout's build exists;
+    returns its path and fills :data:`build_log` with each source's
+    ``ptxas`` output. Raises with nvcc's output when a step fails."""
     nvcc = nvcc_path()
-    h = hashlib.sha256(" ".join((nvcc,) + FLAGS).encode())
+    h = hashlib.sha256(" ".join((nvcc,) + FLAGS + sources).encode())
     for path in sorted(CSRC.iterdir()):
         h.update(path.name.encode() + path.read_bytes())
-    target = BUILD_DIR / f"libnoise_ec_kernels-{h.hexdigest()[:16]}.so"
-    if target.exists():
+    target = BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}.so"
+    log_path = target.with_suffix(".ptxas.json")
+    # The log is written before the library, so a library has its log.
+    if target.exists() and log_path.exists():
+        build_log.update(json.loads(log_path.read_text()))
         return target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{os.getpid()}.tmp"
-    objs = {name: BUILD_DIR / f"{name}.{tag}.o" for name in SOURCES}
+    objs = {name: BUILD_DIR / f"{name}.{tag}.o" for name in sources}
     procs = {
         name: subprocess.Popen(
             [nvcc, *FLAGS, "-c", "-o", str(obj), str(CSRC / f"{name}.cu")],
@@ -97,11 +113,12 @@ def build() -> Path:
         )
         for name, obj in objs.items()
     }
-    failed = []
+    logs, failed = {}, []
     for name, proc in procs.items():
-        build_log[name] = proc.communicate()[0]
+        logs[name] = proc.communicate()[0]
         if proc.returncode != 0:
-            failed.append(f"{name}.cu (rc {proc.returncode}):\n{build_log[name]}")
+            failed.append(f"{name}.cu (rc {proc.returncode}):\n{logs[name]}")
+    build_log.update(logs)
     if not failed:
         tmp = target.with_suffix(f".{tag}")
         link = subprocess.run(
@@ -111,6 +128,9 @@ def build() -> Path:
         if link.returncode != 0:
             failed.append(f"link (rc {link.returncode}):\n{link.stdout}{link.stderr}")
         else:
+            log_tmp = log_path.with_suffix(f".{tag}")
+            log_tmp.write_text(json.dumps(logs))
+            os.replace(log_tmp, log_path)
             os.replace(tmp, target)
     for obj in objs.values():
         obj.unlink(missing_ok=True)
@@ -119,31 +139,46 @@ def build() -> Path:
     return target
 
 
+def _load(path: Path, signatures: dict) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in signatures.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first use)."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for fn, argtypes in _SIGNATURES.items():
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
+            lib = _load(build(), _SIGNATURES)
             lib.ec_error_string.argtypes = [_i]
             lib.ec_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
 
 
-def launch(fn: str, like, *args) -> None:
-    """Run kernel entry ``fn`` on the device of tensor ``like``, on that
-    device's current PyTorch stream (passed as the last argument); raise
-    on a CUDA error."""
-    lib = library()
+def probe_library() -> ctypes.CDLL:
+    """The loaded library of K8's timing probes (built on first use)."""
+    global _probe_lib
+    with _lock:
+        if _probe_lib is None:
+            _probe_lib = _load(build(PROBE_SOURCES, "libnoise_ec_mxu_probe"),
+                               _PROBE_SIGNATURES)
+        return _probe_lib
+
+
+def launch(fn: str, like, *args, lib: Optional[ctypes.CDLL] = None) -> None:
+    """Run kernel entry ``fn`` (of ``lib``, default :func:`library`) on the
+    device of tensor ``like``, on that device's current PyTorch stream
+    (passed as the last argument); raise on a CUDA error."""
+    lib = library() if lib is None else lib
     with torch.cuda.device(like.device):
         stream = torch.cuda.current_stream(like.device).cuda_stream
         rc = getattr(lib, fn)(*args, stream)
     if rc != 0:
-        msg = lib.ec_error_string(rc).decode()
+        msg = library().ec_error_string(rc).decode()
         raise RuntimeError(f"{fn}: CUDA error {rc} ({msg})")
 
 

@@ -67,7 +67,11 @@ from noise_ec_tpu_torch.ops.gf2mm import (
     gf2_matmul_sparse,
     sparse_plan,
 )
-from noise_ec_tpu_torch.ops.mxu import MXU_TILE_WORDS, mxu_encode_words_bits
+from noise_ec_tpu_torch.ops.mxu import (
+    MXU_TILE_WORDS,
+    build_mxu_tiles,
+    mxu_encode_tiles,
+)
 from noise_ec_tpu_torch.ops.network import BLOCK_SIZES, SMEM_BYTES
 from noise_ec_tpu_torch.ops.pack import (
     lane_quantum,
@@ -329,7 +333,8 @@ class DeviceCodec:
         raises. A panel-routed matrix plans kind "panel" with a
         :class:`~noise_ec_tpu_torch.ops.gf2tile.MaskTiles` and the
         planner's G (ops/panel.py :func:`panel_plan`); an "mxu" matrix
-        plans kind "mxu" with K8's int8 bit matrix (threads None, G 1).
+        plans kind "mxu" with K8's tiled bit matrix (an
+        :class:`~noise_ec_tpu_torch.ops.mxu.MxuTiles`; threads None, G 1).
         Neither takes a tier."""
         if tier not in _TIERS:
             raise ValueError(f"unknown tier {tier!r}")
@@ -344,8 +349,10 @@ class DeviceCodec:
         hit = self._plan_cache.get(key)
         if hit is None:
             if route == "mxu":
-                hit = ("mxu", None,
-                       torch.from_numpy(self._bits_for(M).view(np.int8)), 1)
+                bits = torch.from_numpy(self._bits_for(M).view(np.int8))
+                hit = ("mxu", None, build_mxu_tiles(
+                    bits, self.sym_bytes * M.shape[0],
+                    self.sym_bytes * M.shape[1]), 1)
             else:
                 bits_rows = self.bits_rows_for(M)
                 C = 8 * self.sym_bytes * M.shape[1]
@@ -446,7 +453,7 @@ class DeviceCodec:
             words = F.pad(words, (0, TWp - TW))
         words = words.contiguous()
         if kind == "mxu":
-            out = mxu_encode_words_bits(prog, words, R, K)
+            out = mxu_encode_tiles(prog, words)
         elif kind == "fused":
             out = fused_encode_words(prog, words, R, threads, lane_tl(TWp))
         elif kind == "split":

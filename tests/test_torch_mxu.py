@@ -21,6 +21,7 @@ from noise_ec_tpu_torch.ops import launch_counts, reset_launch_counts
 from noise_ec_tpu_torch.ops.dispatch import DeviceCodec
 from noise_ec_tpu_torch.ops.mxu import (
     MxuCodec,
+    MxuTiles,
     cached_bit_expansion,
     mxu_encode_words_bits,
     mxu_encode_words_bits_plain,
@@ -114,6 +115,27 @@ def test_bit_expansion_cache_keys_on_shape_and_bytes():
     assert len(cache) <= 3
 
 
+def test_mxu_codec_plans_its_tiles_once(rng):
+    """MxuCodec caches K8's tiled operand (not the bare expansion), so a
+    repeated matrix is laid out once; the tiles read back to the
+    expansion."""
+    gf = GF256()
+    G = ref_generator(RefGF256(), 10, 14, "cauchy")[10:]
+    tiles = cached_bit_expansion({}, gf, G, "cpu", tiled=True)
+    assert isinstance(tiles, MxuTiles) and (tiles.r, tiles.k) == (4, 10)
+    assert torch.equal(tiles.matrix(),
+                       cached_bit_expansion({}, gf, G, "cpu"))
+    mx = MxuCodec(gf, device="cpu")
+    w = _t(_words(rng, (10, 64)))
+    first = mx.encode_words(G, w)
+    again = mx.encode_words(G.copy(), w)
+    assert len(mx._tiles_cache) == 1
+    assert all(isinstance(v, MxuTiles) for v in mx._tiles_cache.values())
+    want = RefGF256().matvec_stripes(G, w.numpy().view(np.uint8))
+    np.testing.assert_array_equal(first.numpy().view(np.uint8), want)
+    assert torch.equal(again, first)
+
+
 def _dense(seed, r, k):
     rng = np.random.default_rng(seed)
     return rng.integers(1, 256, size=(r, k), dtype=np.uint8)
@@ -125,8 +147,9 @@ def test_dense_gf256_matrix_through_matmul_stripes():
     M = _dense(7, 200, 200)
     codec = DeviceCodec(device="cpu")
     assert codec.route_for(M) == "mxu"
-    kind, threads, m2, G = codec.plan_for(M)
+    kind, threads, tiles, G = codec.plan_for(M)
     assert (kind, threads, G) == ("mxu", None, 1)
+    m2 = tiles.matrix()
     assert m2.dtype == torch.int8 and tuple(m2.shape) == (1600, 1600)
     D = np.random.default_rng(8).integers(0, 256, size=(200, 300),
                                           dtype=np.uint8)
@@ -163,7 +186,7 @@ def test_gf16_bytesliced_entry_on_the_mxu_route(rng):
     M = ref_generator(RefGF65536(), 100, 160, "cauchy")[100:]
     codec = DeviceCodec(field="gf65536", device="cpu")
     assert codec.plan_for(M)[0] == "mxu"
-    assert tuple(codec.plan_for(M)[2].shape) == (960, 1600)
+    assert tuple(codec.plan_for(M)[2].matrix().shape) == (960, 1600)
     D = rng.integers(0, 1 << 16, size=(100, 64), dtype=np.uint16)
     np.testing.assert_array_equal(codec.matmul_stripes(M, D),
                                   RefGF65536().matvec_stripes(M, D))
@@ -171,11 +194,36 @@ def test_gf16_bytesliced_entry_on_the_mxu_route(rng):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("r,k,TW", [(112, 400, 4096), (3, 5, 32),
-                                    (200, 200, 1024)])
+                                    (200, 200, 1024), (56, 400, 1024),
+                                    (5, 7, 4128), (3, 5, 96)])
 def test_mxu_kernel_matches_plain_on_cuda(rng, r, k, TW):
+    """RS(200,56)'s GF(2^16) shapes (896 and 448 bit rows over 400 byte
+    rows), the dense GF(2^8) one, odd K (8K not a multiple of 128 bits)
+    and TW ending in half a column block of the four-warpgroup ring (64
+    words), each in a batch of two."""
     _require_cuda()
     m2 = torch.from_numpy(
         rng.integers(0, 2, size=(8 * r, 8 * k)).astype(np.int8)).cuda()
     w = _t(_words(rng, (2, k, TW))).cuda()
     got = mxu_encode_words_bits(m2, w, r, k)
     assert torch.equal(got, mxu_encode_words_bits_plain(m2, w, r, k))
+
+
+@pytest.mark.cuda
+def test_every_mxu_build_matches_plain_on_cuda(rng):
+    """Each wgmma width the library holds (ops/mxu.py N_MENU), at a ragged
+    width in a batch of three."""
+    from noise_ec_tpu_torch.ops.mxu import (
+        N_MENU,
+        build_mxu_tiles,
+        mxu_encode_tiles,
+    )
+
+    _require_cuda()
+    m2 = torch.from_numpy(
+        rng.integers(0, 2, size=(8 * 30, 8 * 21)).astype(np.int8)).cuda()
+    w = _t(_words(rng, (3, 21, 352))).cuda()
+    want = mxu_encode_words_bits_plain(m2, w, 30, 21)
+    for N in N_MENU:
+        got = mxu_encode_tiles(build_mxu_tiles(m2, 30, 21, N), w)
+        assert torch.equal(got, want), N
