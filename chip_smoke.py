@@ -39,6 +39,14 @@ before printing any result. Phases (one JSON line each):
    and K12 on RS(10,4)'s (32, 80) select masks, random-word masks of that
    shape and RS(50,20)'s (160, 400) masks, each against its plain version
    and K12 also against K11 and the sparse K4;
+   words16_kernels — the m = 16 forms (16 bit-planes a GF(2^16) symbol on
+   the interleaved words entry): K5@16 at its plan and with its phases
+   split over three blocks on GF(2^16) RS(10,4), RS(17,3) and RS(30,10)'s
+   parity and RS(30,10)'s (10, 30) recovery matrix (each also against the
+   NumPy field arithmetic on a 64 KiB slice), K1@16 forced on RS(10,4)
+   and RS(17,3) (also against K5@16), the lane pack and unpack at m = 16
+   at TL = 128 and 512 on those words and at the blocked TL on RS(50,20)'s
+   shapes, a batch of three and ragged words through the codec;
 3. main_path — ``ReedSolomon(10, 4)`` on the card: split a 10 MiB object,
    encode, verify, lose shards {0, 5, 11}, reconstruct, join; a batch of
    five 1 MiB stripes through the coalescer; RS(4,2) on a 64 KiB message;
@@ -57,7 +65,16 @@ before printing any result. Phases (one JSON line each):
    reconstruct, reconstruct_data and join; the interleaved-u16
    ``matmul_words`` (K10 around K4 at RS(10,4), around K7 at RS(60,20)),
    equal to the byte-sliced entry's result; and a dense (200, 200) GF(2^8)
-   matrix through ``matmul_stripes`` (K8). Then the streams (BASELINE
+   matrix through ``matmul_stripes`` (K8). The interleaved words entry
+   runs K5@16 at RS(10,4), K6@16 -> K7 -> K6@16 at RS(60,20), and, forced
+   onto the pipeline past the reference's 48 lane-tile rows, K10 -> K4 ->
+   K10 at RS(49,2). Then the GF(2^16) streams at 1 MiB shards:
+   ``StreamingEncoder(30, 10, field="gf65536")`` on 240 MiB in 30 MiB
+   chunks, decoded at ten data erasures (K5@16 both ways), and
+   ``StreamingEncoder(50, 20, field="gf65536")`` on 400 MiB, decoded at 10
+   data + 10 parity erasures (K6@16 -> K7 -> K6@16), neither launching
+   K10; and ``BatchCodec(10, 4, field="gf65536")`` on a batch of four
+   under the planner's tier and each forced one. Then the streams (BASELINE
    config 3): ``StreamingEncoder(50, 20)`` on 400 MiB in 50 MiB chunks,
    decoded by ``StreamingDecoder`` at 10 data + 10 parity erasures (K5
    both ways); RS(17,3) on 272 MiB in 17 MiB chunks, decoded at 3 (K5);
@@ -94,6 +111,12 @@ before printing any result. Phases (one JSON line each):
    main path's small shards (16 to 64 KiB); the seconds to plan a new RS(50,20) recovery matrix; stream
    encode and decode GB/s from host bytes at RS(17,3) and RS(50,20) with
    the device's share of the wall time;
+   words16_times — K5@16, K1@16 and the lane and blocked packs at m = 16
+   beside their bounds and plain versions; the interleaved entry per tier
+   at GF(2^16) RS(10,4) and RS(30,10) beside the byte-sliced entry and the
+   matrix's bound, and at RS(10,4) beside K10 -> K4 -> K10 (its route
+   before the m = 16 forms); GF(2^16) stream encode and decode GB/s with
+   the device's share;
    dense_times — K9, K11 and K12 beside their bounds and plain versions
    at RS(10,4)'s shapes, and K11 on RS(50,20)'s masks;
    fec_times — the FEC decode p50 per case and route on the host clock,
@@ -443,10 +466,8 @@ def phase_panel_kernels(rng, device, results: dict, codec, codec16) -> dict:
     from noise_ec_tpu_torch.matrix import host_matvec
     from noise_ec_tpu_torch.ops.pack import (
         blocked_lane_tl,
-        pack_words16,
         pack_words_lanes_blocked,
         pack_words_lanes_blocked_plain,
-        unpack_words16,
         unpack_words_lanes_blocked,
         unpack_words_lanes_blocked_plain,
     )
@@ -481,7 +502,7 @@ def phase_panel_kernels(rng, device, results: dict, codec, codec16) -> dict:
         w = words if name == "RS(200,56) parity" else rand_words(
             rng, (k if inter else rows, tw), device)
         if inter:
-            x = pack_words16(w).reshape(16 * k, 8, tw // 128)
+            x = pack_words_lanes_blocked(w, 16).reshape(16 * k, 8, tw // 128)
         else:
             x = pack_words_lanes_blocked(w).reshape(8 * rows, 8, tw // 64)
         out = gf2_matmul_panel(tiles, x, threads)
@@ -489,7 +510,7 @@ def phase_panel_kernels(rng, device, results: dict, codec, codec16) -> dict:
         check(err == 0, f"K7 {name} vs plain")
         err_k7 = max(err_k7, err)
         if inter:
-            got = unpack_words16(out.reshape(r, 16, tw // 16))
+            got = unpack_words_lanes_blocked(out.reshape(r, 16, 8, tw // 128))
             host = host_matvec(GF65536(), Mx,
                                w[:, :host_cols].cpu().numpy().view("<u2"))
             ok = np.array_equal(got[:, :host_cols].cpu().numpy().view("<u2"),
@@ -806,6 +827,224 @@ def phase_split_kernels(rng, device, results: dict, codec, codec16) -> dict:
                               "equal": True}
     return report
 
+# The GF(2^16) streams at 1 MiB shards: RS(30,10) on 240 MiB (8 chunks),
+# decoded at ten data erasures, and RS(50,20) on 400 MiB, decoded at
+# SPLIT_LOST.
+STREAM16_30_10 = 240 * MIB
+LOST16_30_10 = tuple(range(0, 30, 3))
+# Plane words of one bit-plane of a 1 MiB GF(2^16) shard at 16 planes a
+# symbol (the interleaved words entry): one 16-word group a plane word.
+GROUPS16 = TW // 16
+
+
+def words16_cases(codec16) -> dict:
+    """Every matrix the interleaved GF(2^16) words entry runs K5 at m = 16
+    on in main_path: RS(10,4)'s, RS(17,3)'s and RS(30,10)'s parity, and
+    RS(30,10)'s (10, 30) recovery matrix at LOST16_30_10."""
+    from noise_ec_tpu_torch.gf import GF65536
+    from noise_ec_tpu_torch.matrix import (
+        generator_matrix,
+        reconstruction_matrix,
+    )
+
+    gf = GF65536()
+    cases = {f"RS({k},{r}) parity": generator_matrix(gf, k, k + r,
+                                                     "cauchy")[k:]
+             for k, r in ((10, 4), (17, 3), (30, 10))}
+    G = generator_matrix(gf, 30, 40, "cauchy")
+    present = [i for i in range(40) if i not in LOST16_30_10]
+    cases["RS(30,10) recovery (10,30)"] = reconstruction_matrix(
+        gf, G, present[:30], list(LOST16_30_10))
+    for name, M in cases.items():
+        check(codec16.route_for(M) == "baked", f"GF(2^16) {name} baked")
+    return cases
+
+
+def tier3_matrix() -> np.ndarray:
+    """GF(2^16) RS(49,2)'s parity: baked, but past the 48 rows of the
+    reference's lane tile at m = 16, so its forced pipeline is the
+    reference's tier 3 (K10 -> K4 -> K10)."""
+    from noise_ec_tpu_torch.gf import GF65536
+    from noise_ec_tpu_torch.matrix import generator_matrix
+
+    return generator_matrix(GF65536(), 49, 51, "cauchy")[49:]
+
+
+def host_words16(M, w: torch.Tensor, cols: int) -> np.ndarray:
+    """The NumPy field arithmetic's GF(2^16) product of the first ``cols``
+    interleaved words of each row of ``w`` (u16 symbols)."""
+    from noise_ec_tpu_torch.gf import GF65536
+    from noise_ec_tpu_torch.matrix import host_matvec
+
+    return host_matvec(GF65536(), M, w[:, :cols].cpu().numpy().view("<u2"))
+
+
+def phase_words16_kernels(rng, device, results: dict, codec16) -> dict:
+    """The m = 16 forms against their plain versions on the card, byte for
+    byte, at 1 MiB shards: K5@16 on every matrix of :func:`words16_cases`
+    at its plan and with its phases split over three blocks, each also
+    against the NumPy field arithmetic on a 64 KiB slice, and K1@16 forced
+    on RS(10,4) and RS(17,3) (the codes whose network K1 holds), also
+    against K5@16; the lane pack and unpack at m = 16 at TL = 128 and at
+    the port's TL (512) on each matrix's words, and at the blocked TL on
+    RS(50,20)'s panel shapes (50 rows in, 20 out); a batch of three
+    through K5@16 and K1@16; ragged words (TW off the 16,384-word quantum)
+    through the interleaved entry; and the forced tier 3 of main_path at
+    RS(49,2) (:func:`tier3_matrix`), K10 pack, K4 and K10 unpack each at
+    that path's shapes."""
+    from noise_ec_tpu_torch.ops.fused import (
+        fused_encode_words,
+        fused_encode_words_plain,
+        fused_split_encode_words,
+        fused_split_encode_words_plain,
+    )
+    from noise_ec_tpu_torch.ops.gf2mm import (
+        gf2_matmul_sparse,
+        gf2_matmul_sparse_plain,
+    )
+    from noise_ec_tpu_torch.ops.pack import (
+        blocked_lane_tl,
+        lane_tl,
+        pack_words16,
+        pack_words16_plain,
+        pack_words_lanes,
+        pack_words_lanes_blocked,
+        pack_words_lanes_blocked_plain,
+        pack_words_lanes_plain,
+        unpack_words16,
+        unpack_words16_plain,
+        unpack_words_lanes,
+        unpack_words_lanes_blocked,
+        unpack_words_lanes_blocked_plain,
+        unpack_words_lanes_plain,
+    )
+
+    report = {"phase": "words16_kernels"}
+    err = {name: 0 for name in ("fused_split16", "fused_encode16",
+                                "pack_lanes16", "unpack_lanes16",
+                                "pack_lanes_blocked16",
+                                "unpack_lanes_blocked16")}
+    cols = HOST_SLICE // 4
+    cases = words16_cases(codec16)
+    for name, M in cases.items():
+        r, k = M.shape
+        kind, threads, tiles, _ = codec16.plan_for(M)
+        check(kind == "split", f"GF(2^16) {name} plans onto K5")
+        w = rand_words(rng, (k, TW), device)
+        out = fused_split_encode_words(tiles, w, r, threads, m=16)
+        plain = fused_split_encode_words_plain(tiles, w, r, 128, 16)
+        ksplit = min(3, tiles.NT)
+        split3 = fused_split_encode_words(tiles, w, r, threads, ksplit=ksplit,
+                                          m=16)
+        e5 = max(max_abs_err(out, plain), max_abs_err(split3, plain))
+        torch.cuda.synchronize()
+        check(e5 == 0, f"K5@16 {name} vs plain, one block and {ksplit} a "
+              "column")
+        check(np.array_equal(out[:, :cols].cpu().numpy().view("<u2"),
+                             host_words16(M, w, cols)),
+              f"K5@16 {name} vs host_matvec (64 KiB)")
+        err["fused_split16"] = max(err["fused_split16"], e5)
+        entry = {"threads": threads, "ksl": tiles.KT // 16,
+                 "phases": tiles.NT, "row_groups": tiles.NRG, "WC": tiles.WC,
+                 "ring_bytes": tiles.ring_bytes, "ksplit": ksplit,
+                 "equal": True}
+        if k <= 17:
+            _, t1, p1, _ = codec16.plan_for(M, "fused")
+            o1 = fused_encode_words(p1, w, r, t1, m=16)
+            e1 = max_abs_err(o1, fused_encode_words_plain(p1, w, r, 128, 16))
+            torch.cuda.synchronize()
+            check(e1 == 0, f"K1@16 {name} vs plain")
+            check(torch.equal(o1, out), f"K1@16 {name} vs K5@16")
+            err["fused_encode16"] = max(err["fused_encode16"], e1)
+            entry["k1_threads"] = t1
+        for tl in (128, lane_tl(TW, 16)):
+            planes = pack_words_lanes(w, tl, 16)
+            ep = max_abs_err(planes, pack_words_lanes_plain(w, tl, 16))
+            back = unpack_words_lanes(planes, tl)
+            eu = max_abs_err(back, unpack_words_lanes_plain(planes, tl))
+            torch.cuda.synchronize()
+            check(ep == 0 and eu == 0,
+                  f"lane pack/unpack@16 TL={tl} {name} vs plain")
+            check(torch.equal(back, w), f"lane pack@16 TL={tl} round trip")
+            err["pack_lanes16"] = max(err["pack_lanes16"], ep)
+            err["unpack_lanes16"] = max(err["unpack_lanes16"], eu)
+        entry["lane_tl"] = [128, lane_tl(TW, 16)]
+        report[name] = entry
+
+    # K6@16 at RS(50,20)'s panel shapes.
+    w50 = rand_words(rng, (50, TW), device)
+    planes = pack_words_lanes_blocked(w50, 16)
+    ep = max_abs_err(planes, pack_words_lanes_blocked_plain(w50, 16))
+    parity_planes = planes[:20].contiguous()
+    back = unpack_words_lanes_blocked(parity_planes)
+    eu = max_abs_err(back, unpack_words_lanes_blocked_plain(parity_planes))
+    torch.cuda.synchronize()
+    check(ep == 0 and eu == 0, "blocked pack/unpack@16 (50, 20 rows)")
+    check(torch.equal(unpack_words_lanes_blocked(planes), w50),
+          "blocked pack@16 round trip")
+    err["pack_lanes_blocked16"] = ep
+    err["unpack_lanes_blocked16"] = eu
+    report["RS(50,20) blocked"] = {"tl": blocked_lane_tl(TW, 16),
+                                   "rows": [50, 20], "equal": True}
+
+    # A batch of three through K5@16 and K1@16, and ragged words through
+    # the codec (padded to the quantum and sliced back).
+    M = cases["RS(10,4) parity"]
+    _, threads, tiles, _ = codec16.plan_for(M)
+    _, t1, p1, _ = codec16.plan_for(M, "fused")
+    w3 = rand_words(rng, (3, 10, TW), device)
+    out3 = fused_split_encode_words(tiles, w3, 4, threads, m=16)
+    e3 = max(max_abs_err(out3, fused_split_encode_words_plain(
+        tiles, w3, 4, 128, 16)), max_abs_err(
+            fused_encode_words(p1, w3, 4, t1, m=16), out3))
+    M30 = cases["RS(30,10) parity"]
+    ragged = rand_words(rng, (3, 30, TW - 5), device)
+    got = codec16.matmul_words_batch(M30, ragged)
+    torch.cuda.synchronize()
+    check(e3 == 0, "K5@16 and K1@16 on a batch of three vs plain")
+    for b in range(3):
+        for lo in (0, TW - 5 - cols):
+            check(np.array_equal(
+                got[b, :, lo:lo + cols].cpu().numpy().view("<u2"),
+                host_words16(M30, ragged[b, :, lo:], cols)),
+                f"K5@16 on ragged words (TW = {TW - 5}), batch {b}, at {lo}")
+    err["fused_split16"] = max(err["fused_split16"], e3)
+    err["fused_encode16"] = max(err["fused_encode16"], e3)
+    report["batch_ragged"] = {"batch": 3, "tw": [TW, TW - 5], "equal": True}
+    for name, e in err.items():
+        results[name]["max_abs_err"] = e
+
+    # The main path's forced tier 3 at GF(2^16) RS(49,2), kernel by kernel:
+    # K10 packs 49 rows, K4 runs the pipeline program over 784 planes into
+    # 32, K10 unpacks the 2 product rows.
+    M49 = tier3_matrix()
+    kind, tp, prog, _ = codec16.plan_for(M49, "pipeline")
+    check(kind == "pipeline", "GF(2^16) RS(49,2) forced pipeline")
+    w49 = rand_words(rng, (49, TW), device)
+    planes = pack_words16(w49)
+    ep = max_abs_err(planes, pack_words16_plain(w49))
+    x = planes.reshape(784, 8, TW // 128)
+    prod = gf2_matmul_sparse(prog, x, tp)
+    em = max_abs_err(prod, gf2_matmul_sparse_plain(prog, x))
+    prod = prod.reshape(2, 16, TW // 16)
+    back = unpack_words16(prod)
+    eu = max_abs_err(back, unpack_words16_plain(prod))
+    torch.cuda.synchronize()
+    check(ep == 0, "K10 pack16 on RS(49,2)'s 49 rows vs plain")
+    check(em == 0, "K4 on RS(49,2)'s pipeline program vs plain")
+    check(eu == 0, "K10 unpack16 on RS(49,2)'s 2 rows vs plain")
+    check(np.array_equal(back[:, :cols].cpu().numpy().view("<u2"),
+                         host_words16(M49, w49, cols)),
+          "K10 -> K4 -> K10 on RS(49,2) vs host_matvec (64 KiB)")
+    for name, e in (("pack_words16", ep), ("gf2mm_sparse", em),
+                    ("unpack_words16", eu)):
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], e)
+    report["RS(49,2) tier 3"] = {"threads": tp, "planes": [784, 32],
+                                 "slots": prog.n_slots, "xors": prog.cost,
+                                 "equal": True}
+    return report
+
+
 # The dense-mask kernels' plane width at 1 MiB shards: the sublane layout's
 # TW / 8 words a plane (RS(10,4): 80 planes in, 32 out).
 W_PLANE = TW // 8
@@ -922,6 +1161,69 @@ def degraded_rows(chunks, present):
         yield c.index, rows
 
 
+def stream_parity_ok(enc, c) -> bool:
+    """Chunk ``c``'s parity against the NumPy field arithmetic on the first
+    64 KiB of each shard, in the field of ``enc`` (u16 symbols over
+    GF(2^16))."""
+    from noise_ec_tpu_torch.matrix import host_matvec
+
+    cols = min(HOST_SLICE, c.data.shape[1])
+    data, parity = c.data[:, :cols], c.parity[:, :cols]
+    gf = enc.codec.gf
+    if gf.degree == 16:
+        data, parity = (np.ascontiguousarray(a).view("<u2")
+                        for a in (data, parity))
+    return np.array_equal(parity,
+                          host_matvec(gf, enc.codec.parity_matrix, data))
+
+
+def drive_streams(rng, run_path, out: dict, cases: dict) -> dict:
+    """Each stream of ``cases`` (name -> (encoder, decoder or None, stream
+    bytes, present shard indices)) through ``run_path`` into ``out``:
+    encode at depth 4, then decode the ``present`` shards of every chunk
+    at depth 4. Every chunk's parity is checked against the NumPy field
+    arithmetic on a 64 KiB slice (:func:`stream_parity_ok`), every rebuilt
+    chunk against the encoded one, and every stream round trip in full."""
+    from noise_ec_tpu_torch.parallel import StreamChunk, decode_stream
+
+    report = {}
+    for name, (enc, dec, size, present) in cases.items():
+        data = rng.integers(0, 256, size=size, dtype=np.uint8).tobytes()
+        chunks, out[f"{name}_encode"] = run_path(
+            lambda: list(enc.encode_bytes(data, depth=4)))
+        check([c.index for c in chunks] == list(range(len(chunks))),
+              f"{name} chunks in order")
+        check(decode_stream(chunks, enc.k, len(data)) == data,
+              f"{name} round trip")
+        for c in chunks:
+            check(stream_parity_ok(enc, c),
+                  f"{name} chunk {c.index} parity vs host_matvec (64 KiB)")
+        report[name] = {"stream_bytes": size, "chunks": len(chunks),
+                        "chunk_bytes": enc.chunk_bytes,
+                        "stride_bytes": int(chunks[0].data.shape[1]),
+                        "tail_data_len": chunks[-1].data_len}
+        if dec is not None:
+            rebuilt, out[f"{name}_decode"] = run_path(
+                lambda: list(dec.reconstruct_stream(
+                    degraded_rows(chunks, present), present, depth=4)))
+            check([i for i, _ in rebuilt] == [c.index for c in chunks],
+                  f"{name} rebuilt chunks in order")
+            for (i, rows), c in zip(rebuilt, chunks):
+                check(np.array_equal(rows[:enc.k], c.data)
+                      and np.array_equal(rows[enc.k:], c.parity),
+                      f"{name} chunk {i} rebuilt")
+            check(decode_stream(
+                [StreamChunk(index=i, shards=rows, data_len=c.data_len)
+                 for (i, rows), c in zip(rebuilt, chunks)],
+                enc.k, len(data)) == data,
+                f"{name} round trip after the loss")
+            report[name]["lost"] = [i for i in range(enc.n)
+                                    if i not in present]
+            del rebuilt
+        del chunks, data
+    return report
+
+
 def main_path_streams(rng, run_path, out: dict) -> dict:
     """The streaming paths of main_path, each through ``run_path`` into
     ``out``: RS(50,20) on a 400 MiB stream in 50 MiB chunks (depth 4),
@@ -933,15 +1235,8 @@ def main_path_streams(rng, run_path, out: dict) -> dict:
     slice, every rebuilt codeword against the encoded one, and every
     stream round trip in full."""
     from noise_ec_tpu_torch.codec import ReedSolomon
-    from noise_ec_tpu_torch.matrix import host_matvec
-    from noise_ec_tpu_torch.parallel import (
-        StreamChunk,
-        StreamingDecoder,
-        StreamingEncoder,
-        decode_stream,
-    )
+    from noise_ec_tpu_torch.parallel import StreamingDecoder, StreamingEncoder
 
-    gf, _, _ = rs_50_20()
     present50 = [i for i in range(70) if i not in SPLIT_LOST]
     present17 = [i for i in range(20) if i not in LOST_17_3]
     cases = {
@@ -954,42 +1249,7 @@ def main_path_streams(rng, run_path, out: dict) -> dict:
                                                 chunk_bytes=OBJECT_CHUNK),
                                None, OBJECT_STREAM, None),
     }
-    report = {}
-    for name, (enc, dec, size, present) in cases.items():
-        data = rng.integers(0, 256, size=size, dtype=np.uint8).tobytes()
-        chunks, out[f"{name}_encode"] = run_path(
-            lambda: list(enc.encode_bytes(data, depth=4)))
-        check([c.index for c in chunks] == list(range(len(chunks))),
-              f"{name} chunks in order")
-        check(decode_stream(chunks, enc.k, len(data)) == data,
-              f"{name} round trip")
-        M = enc.codec.parity_matrix
-        for c in chunks:
-            cols = min(HOST_SLICE, c.data.shape[1])
-            check(np.array_equal(c.parity[:, :cols],
-                                 host_matvec(gf, M, c.data[:, :cols])),
-                  f"{name} chunk {c.index} parity vs host_matvec (64 KiB)")
-        report[name] = {"stream_bytes": size, "chunks": len(chunks),
-                        "chunk_bytes": enc.chunk_bytes,
-                        "stride_bytes": int(chunks[0].data.shape[1]),
-                        "tail_data_len": chunks[-1].data_len}
-        if dec is None:
-            continue
-        rebuilt, out[f"{name}_decode"] = run_path(
-            lambda: list(dec.reconstruct_stream(
-                degraded_rows(chunks, present), present, depth=4)))
-        check([i for i, _ in rebuilt] == [c.index for c in chunks],
-              f"{name} rebuilt chunks in order")
-        for (i, rows), c in zip(rebuilt, chunks):
-            check(np.array_equal(rows[:enc.k], c.data)
-                  and np.array_equal(rows[enc.k:], c.parity),
-                  f"{name} chunk {i} rebuilt")
-        check(decode_stream(
-            [StreamChunk(index=i, shards=rows, data_len=c.data_len)
-             for (i, rows), c in zip(rebuilt, chunks)],
-            enc.k, len(data)) == data, f"{name} round trip after the loss")
-        report[name]["lost"] = [i for i in range(enc.n) if i not in present]
-        del rebuilt
+    report = drive_streams(rng, run_path, out, cases)
     n50 = report["stream_rs_50_20"]["chunks"]
     n17 = report["stream_rs_17_3"]["chunks"]
     nobj = report["stream_object_4mib"]["chunks"]
@@ -1034,6 +1294,82 @@ def main_path_streams(rng, run_path, out: dict) -> dict:
     return {"streams": report}
 
 
+def main_path_words16(rng, run_path, out: dict) -> dict:
+    """The interleaved GF(2^16) words paths of main_path, each through
+    ``run_path`` into ``out``: ``StreamingEncoder(30, 10,
+    field="gf65536")`` on 240 MiB in 30 MiB chunks (1 MiB shards, depth
+    4), decoded at ten data erasures (K5@16 both ways);
+    ``StreamingEncoder(50, 20, field="gf65536")`` on 400 MiB in 50 MiB
+    chunks, decoded at 10 data + 10 parity erasures (K6@16 -> K7 -> K6@16
+    both ways); and ``BatchCodec(10, 4, field="gf65536")`` on a batch of
+    four 1 MiB-shard objects, ``encode_batch_words`` on the planner's tier
+    and the words product under each forced tier. Every chunk's parity is
+    checked against the NumPy field arithmetic on a 64 KiB slice, every
+    rebuilt chunk against the encoded one, every stream round trip in full,
+    and every batch product against the host on a 64 KiB slice."""
+    from noise_ec_tpu_torch.parallel import (
+        BatchCodec,
+        StreamingDecoder,
+        StreamingEncoder,
+    )
+
+    cases = {}
+    for name, (k, r, size, lost) in {
+            "stream16_rs_30_10": (30, 10, STREAM16_30_10, LOST16_30_10),
+            "stream16_rs_50_20": (50, 20, STREAM_50_20, SPLIT_LOST)}.items():
+        cases[name] = (StreamingEncoder(k, r, chunk_bytes=k * SHARD,
+                                        field="gf65536"),
+                       StreamingDecoder(k, r, field="gf65536"), size,
+                       [i for i in range(k + r) if i not in lost])
+    report = drive_streams(rng, run_path, out, cases)
+    for path in ("encode", "decode"):
+        n = report["stream16_rs_30_10"]["chunks"]
+        counts = out[f"stream16_rs_30_10_{path}"]
+        check(counts["fused_split16"] == n and sum(counts.values()) == n,
+              f"stream16_rs_30_10_{path}: one K5@16 launch a chunk and no "
+              "other kernel")
+        n = report["stream16_rs_50_20"]["chunks"]
+        counts = out[f"stream16_rs_50_20_{path}"]
+        check(counts["pack_lanes_blocked16"] == n
+              and counts["unpack_lanes_blocked16"] == n
+              and counts["gf2mm_panel"] >= n,
+              f"stream16_rs_50_20_{path}: K6@16 -> K7 -> K6@16 a chunk")
+        for name in ("stream16_rs_30_10", "stream16_rs_50_20"):
+            counts = out[f"{name}_{path}"]
+            check(counts["pack_words16"] == 0
+                  and counts["unpack_words16"] == 0,
+                  f"{name}_{path}: no K10 launch")
+
+    bc = BatchCodec(10, 4, field="gf65536")
+    words = rand_words(rng, (4, 10, TW), bc.device_codec().device)
+    full, out["batch16"] = run_path(lambda: bc.encode_batch_words(words))
+    check(out["batch16"]["fused_split16"] == 1
+          and sum(out["batch16"].values()) == 1,
+          "BatchCodec GF(2^16) encode_batch_words: one K5@16 launch")
+    want = [host_words16(bc.parity_matrix, words[b], HOST_SLICE // 4)
+            for b in range(4)]
+    for b in range(4):
+        check(np.array_equal(full[b, 10:, :HOST_SLICE // 4].cpu().numpy()
+                             .view("<u2"), want[b]),
+              f"BatchCodec GF(2^16) batch {b} parity vs host_matvec")
+    tier_kernels = {"split": ("fused_split16",), "fused": ("fused_encode16",),
+                    "pipeline": ("pack_lanes16", "gf2mm_sparse",
+                                 "unpack_lanes16")}
+    for tier, kernels in tier_kernels.items():
+        got, out[f"batch16_{tier}"] = run_path(
+            lambda: bc.device_codec().matmul_words_batch(
+                bc.parity_matrix, words, tier=tier))
+        check(torch.equal(got, full[:, 10:]),
+              f"BatchCodec GF(2^16) tier {tier} vs the planner's")
+        counts = out[f"batch16_{tier}"]
+        check(all(counts[n] == 1 for n in kernels)
+              and sum(counts.values()) == len(kernels),
+              f"BatchCodec GF(2^16) tier {tier} ran {kernels} once each")
+    report["batch16"] = {"batch": 4, "k": 10, "r": 4, "shard_bytes": SHARD,
+                         "tiers": [None, *tier_kernels]}
+    return {"words16_paths": report}
+
+
 def main_path_gf16(rng, run_path, out: dict) -> dict:
     """The GF(2^16) paths and the dense GF(2^8) "mxu" path of main_path,
     each run through ``run_path`` into ``out``; every output checked
@@ -1056,11 +1392,14 @@ def main_path_gf16(rng, run_path, out: dict) -> dict:
     codec16 = DeviceCodec(field="gf65536")
     gf16 = rs.gf
     M60 = generator_matrix(gf16, 60, 80, "cauchy")[60:]
+    M49 = tier3_matrix()
     check(codec16.route_for(rs.G[10:]) == "baked", "GF(2^16) RS(10,4) baked")
     check(codec16.route_for(M60) == "panel", "GF(2^16) RS(60,20) panel")
+    check(codec16.route_for(M49) == "baked", "GF(2^16) RS(49,2) baked")
     device = codec16.device
     w10 = rand_words(rng, (10, TW), device)
     w60 = rand_words(rng, (60, TW), device)
+    w49 = rand_words(rng, (49, TW), device)
     dense = rng.integers(1, 256, size=(200, 200), dtype=np.uint8)
     dense_in = rng.integers(0, 256, size=(200, SHARD), dtype=np.uint8)
     codec = DeviceCodec()
@@ -1079,13 +1418,15 @@ def main_path_gf16(rng, run_path, out: dict) -> dict:
 
     def words16():
         return (codec16.matmul_words(rs.G[10:], w10),
-                codec16.matmul_words(M60, w60))
+                codec16.matmul_words(M60, w60),
+                codec16.matmul_words(M49, w49, tier="pipeline"))
 
     r10, out["rs16_10_4"] = run_path(
         lambda: codec_path(rs, obj, {0, 5, 11}))
     r200, out["rs16_200_56"] = run_path(
         lambda: codec_path(rs200, wide_obj, wide_lost))
-    (i10, i60), out["words16"] = run_path(words16)
+    codec16.plan_for(M49, "pipeline")  # host factoring, before the path
+    (i10, i60, i49), out["words16"] = run_path(words16)
     dense_out, out["mxu_256"] = run_path(
         lambda: codec.matmul_stripes(dense, dense_in))
 
@@ -1120,6 +1461,8 @@ def main_path_gf16(rng, run_path, out: dict) -> dict:
 
     for name, M, w, got, cols in (("RS(10,4)", rs.G[10:], w10, i10, TW),
                                   ("RS(60,20)", M60, w60, i60,
+                                   HOST_SLICE // 4),
+                                  ("RS(49,2) tier 3", M49, w49, i49,
                                    HOST_SLICE // 4)):
         via = bytesliced_to_words16(
             codec16.matmul_words_bytesliced(M, words16_to_bytesliced(w)))
@@ -1142,13 +1485,18 @@ def main_path_gf16(rng, run_path, out: dict) -> dict:
         "included, on K8 alone")
     check(out["rs16_10_4"]["fused_split"] > 0,
           "K5 launched on GF(2^16) RS(10,4)")
-    for name in ("pack_words16", "unpack_words16", "gf2mm_sparse",
-                 "gf2mm_panel"):
-        check(out["words16"][name] > 0, f"{name} launched on words16")
+    # K5@16 at RS(10,4), K6@16 -> K7 -> K6@16 at RS(60,20), and the forced
+    # pipeline's tier 3 at RS(49,2).
+    for name in ("fused_split16", "pack_lanes_blocked16", "gf2mm_panel",
+                 "unpack_lanes_blocked16", "pack_words16", "gf2mm_sparse",
+                 "unpack_words16"):
+        check(out["words16"][name] == 1, f"{name} launched once on words16")
+    check(sum(out["words16"].values()) == 7, "words16 ran those seven")
     return {"rs16_10_4_object_bytes": len(obj),
             "rs16_200_56_object_bytes": len(wide_obj),
             "rs16_200_56_erasures": list(WIDE_LOST),
-            "words16_matrices": ["RS(10,4) parity", "RS(60,20) parity"],
+            "words16_matrices": ["RS(10,4) parity", "RS(60,20) parity",
+                                 "RS(49,2) parity, tier 3 forced"],
             "mxu_256_stripe_bytes": SHARD}
 
 
@@ -1436,6 +1784,7 @@ def phase_main_path(rng, codecs: dict) -> dict:
           and out["rs_200_56"]["fused_split"] == 0,
           "RS(200,56) runs no fused-kernel launch")
     gf16_report = main_path_gf16(rng, run_path, out)
+    words16_report = main_path_words16(rng, run_path, out)
     stream_report = main_path_streams(rng, run_path, out)
     dense_report = main_path_dense_masks(rng, run_path, out)
     hwcheck_report = main_path_hwcheck(run_path, out, codecs)
@@ -1443,7 +1792,8 @@ def phase_main_path(rng, codecs: dict) -> dict:
     launches = {name: sum(c[name] for c in out.values())
                 for name in out["pipeline"]}
     return {"phase": "main_path", "launches": launches, "by_path": out,
-            **gf16_report, **stream_report, **dense_report,
+            **gf16_report, **words16_report, **stream_report,
+            **dense_report,
             **hwcheck_report, **fec_report,
             "rs_10_4_object_bytes": len(obj), "erasures": [0, 5, 11],
             "batch": len(batch), "rs_4_2_message_bytes": len(small),
@@ -1932,6 +2282,53 @@ def phase_gf16_times(rng, device, results: dict) -> dict:
     }
 
 
+def stream_times(rng, timer, device, cases) -> dict:
+    """Streaming encode and decode GB/s from host bytes for each of
+    ``cases`` ((name, k, r, stream bytes, lost shards, field), 1 MiB
+    shards), best of STREAM_REPS after a warm-up that plans the parity and
+    recovery matrices, with the device's share of the wall time: the
+    product alone on one chunk, device-resident, times the chunks."""
+    from noise_ec_tpu_torch.parallel import StreamingDecoder, StreamingEncoder
+
+    streams = {}
+    for name, k, r, size, lost, field in cases:
+        enc = StreamingEncoder(k, r, chunk_bytes=k * SHARD, field=field)
+        dec = StreamingDecoder(k, r, field=field)
+        present = [i for i in range(k + r) if i not in lost]
+        data = rng.integers(0, 256, size=size, dtype=np.uint8).tobytes()
+        chunks = list(enc.encode_bytes(data))  # plans the parity matrix
+        rows = list(degraded_rows(chunks, present))
+        list(dec.reconstruct_stream(iter(rows[:1]), present))  # and recovery
+        enc_s, dec_s = [], []
+        for _ in range(STREAM_REPS):
+            t0 = time.perf_counter()
+            chunks = list(enc.encode_bytes(data))
+            enc_s.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            list(dec.reconstruct_stream(iter(rows), present))
+            dec_s.append(time.perf_counter() - t0)
+        w = rand_words(rng, (1, k, TW), device)
+        wp = rand_words(rng, (1, len(present), TW), device)
+        enc_dev_ms = timer.median_ms(
+            lambda: enc.codec.device_codec().matmul_words_batch(
+                enc.codec.parity_matrix, w))
+        dec_dev_ms = timer.median_ms(
+            lambda: dec.codec.reconstruct_batch_words(wp, present))
+        n = len(chunks)
+        streams[name] = {
+            "stream_bytes": size, "chunks": n, "erasures": list(lost),
+            "encode_seconds": enc_s, "decode_seconds": dec_s,
+            "encode_gbps": size / min(enc_s) / 1e9,
+            "decode_gbps": size / min(dec_s) / 1e9,
+            "encode_product_ms_per_chunk": enc_dev_ms,
+            "decode_product_ms_per_chunk": dec_dev_ms,
+            "encode_device_share": n * enc_dev_ms / 1e3 / min(enc_s),
+            "decode_device_share": n * dec_dev_ms / 1e3 / min(dec_s),
+        }
+        del chunks, rows, data
+    return streams
+
+
 def phase_split_times(rng, device, results: dict) -> dict:
     """K5 at RS(50,20), 1 MiB shards, beside its bound, its own operation
     floor and its plain version, and on the (20, 50) recovery matrix;
@@ -1961,7 +2358,6 @@ def phase_split_times(rng, device, results: dict) -> dict:
         pack_words_sublane,
         unpack_words_sublane,
     )
-    from noise_ec_tpu_torch.parallel import StreamingDecoder, StreamingEncoder
 
     timer = Timer(device)
     codec = DeviceCodec(device=device)
@@ -2086,47 +2482,9 @@ def phase_split_times(rng, device, results: dict) -> dict:
         compile_split(br, 50, ksl)
     factoring_s = time.monotonic() - t0
 
-    streams = {}
-    for name, k, r, size, lost in (("rs_17_3", 17, 3, STREAM_17_3,
-                                    LOST_17_3),
-                                   ("rs_50_20", 50, 20, STREAM_50_20,
-                                    SPLIT_LOST)):
-        enc = StreamingEncoder(k, r, chunk_bytes=k * SHARD)
-        dec = StreamingDecoder(k, r)
-        present = [i for i in range(k + r) if i not in lost]
-        data = rng.integers(0, 256, size=size, dtype=np.uint8).tobytes()
-        chunks = list(enc.encode_bytes(data))  # plans the parity matrix
-        rows = list(degraded_rows(chunks, present))
-        list(dec.reconstruct_stream(iter(rows[:1]), present))  # and recovery
-        enc_s, dec_s = [], []
-        for _ in range(STREAM_REPS):
-            t0 = time.perf_counter()
-            chunks = list(enc.encode_bytes(data))
-            enc_s.append(time.perf_counter() - t0)
-            t0 = time.perf_counter()
-            list(dec.reconstruct_stream(iter(rows), present))
-            dec_s.append(time.perf_counter() - t0)
-        # The product alone on one chunk, device-resident, for the device's
-        # share of each chunk's wall time.
-        w = rand_words(rng, (1, k, TW), device)
-        wp = rand_words(rng, (1, len(present), TW), device)
-        enc_dev_ms = timer.median_ms(
-            lambda: enc.codec.device_codec().matmul_words_batch(
-                enc.codec.parity_matrix, w))
-        dec_dev_ms = timer.median_ms(
-            lambda: dec.codec.reconstruct_batch_words(wp, present))
-        n = len(chunks)
-        streams[name] = {
-            "stream_bytes": size, "chunks": n, "erasures": list(lost),
-            "encode_seconds": enc_s, "decode_seconds": dec_s,
-            "encode_gbps": size / min(enc_s) / 1e9,
-            "decode_gbps": size / min(dec_s) / 1e9,
-            "encode_product_ms_per_chunk": enc_dev_ms,
-            "decode_product_ms_per_chunk": dec_dev_ms,
-            "encode_device_share": n * enc_dev_ms / 1e3 / min(enc_s),
-            "decode_device_share": n * dec_dev_ms / 1e3 / min(dec_s),
-        }
-        del chunks, rows, data
+    streams = stream_times(rng, timer, device, (
+        ("rs_17_3", 17, 3, STREAM_17_3, LOST_17_3, "gf256"),
+        ("rs_50_20", 50, 20, STREAM_50_20, SPLIT_LOST, "gf256")))
     return {
         "phase": "split_times", "reps": REPS, "stream_reps": STREAM_REPS,
         "rs_50_20_recovery_k5": recovery,
@@ -2142,6 +2500,150 @@ def phase_split_times(rng, device, results: dict) -> dict:
         "k1_vs_k5": k1_vs_k5, "k1_vs_k5_small": k1_vs_k5_small,
         "streams": streams,
     }
+
+
+def phase_words16_times(rng, device, results: dict) -> dict:
+    """The m = 16 forms at 1 MiB shards beside their bounds and plain
+    versions: K5@16 on GF(2^16) RS(30,10)'s parity (the stream's matrix),
+    K1@16 on RS(10,4) (forced), the lane pack at RS(10,4)'s shapes (10 rows
+    in, 4 out) and the blocked pack at RS(50,20)'s (50 in, 20 out). The
+    interleaved words entry per tier at RS(10,4) and RS(30,10), beside the
+    byte-sliced entry on the same matrix and the matrix's bound, and at
+    RS(10,4) beside K10 -> K4 -> K10, the route the entry took before the
+    m = 16 forms. Stream encode and decode GB/s from host bytes for the
+    two GF(2^16) streams, with the device's share of the wall time."""
+    from noise_ec_tpu_torch.gf import GF65536
+    from noise_ec_tpu_torch.matrix import generator_matrix
+    from noise_ec_tpu_torch.ops.dispatch import DeviceCodec
+    from noise_ec_tpu_torch.ops.fused import (
+        fused_encode_words,
+        fused_encode_words_plain,
+        fused_plan,
+        fused_split_encode_words,
+        fused_split_encode_words_plain,
+    )
+    from noise_ec_tpu_torch.ops.gf2mm import gf2_matmul_sparse
+    from noise_ec_tpu_torch.ops.network import compile_network
+    from noise_ec_tpu_torch.ops.pack import (
+        lane_tl,
+        pack_words16,
+        pack_words_lanes,
+        pack_words_lanes_blocked,
+        pack_words_lanes_blocked_plain,
+        pack_words_lanes_plain,
+        unpack_words16,
+        unpack_words_lanes,
+        unpack_words_lanes_blocked,
+        unpack_words_lanes_blocked_plain,
+        unpack_words_lanes_plain,
+        words16_to_bytesliced,
+    )
+
+    timer = Timer(device)
+    codec16 = DeviceCodec(field="gf65536", device=device)
+    gf16 = GF65536()
+    tl = lane_tl(TW, 16)  # 512 at 1 MiB shards
+
+    def matrix_bound16(M):
+        """The matrix's bound at 16 planes a symbol, whichever kernel runs
+        it: bytes, k rows in and r out; operations, the XORs of the whole
+        network factored uncapped on every plane word and one 16-word
+        transpose (four delta-swap rounds) per row and group. Returns
+        (bound_ms, bound_by, bound_xors)."""
+        r, k = M.shape
+        xors = compile_network(codec16.bits_rows_for(M), 16 * k).cost
+        return bound((k + r) * SHARD, xors * GROUPS16
+                     + (k + r) * GROUPS16 * TRANSPOSE16_OPS) + (xors,)
+
+    mats = {(k, r): generator_matrix(gf16, k, k + r, "cauchy")[k:]
+            for k, r in ((10, 4), (30, 10))}
+    words = {key: rand_words(rng, (key[0], TW), device) for key in mats}
+
+    # K5@16 at RS(30,10), K1@16 at RS(10,4).
+    M, w = mats[(30, 10)], words[(30, 10)]
+    _, threads, tiles, _ = codec16.plan_for(M)
+    b_ms, b_by, b_xors = matrix_bound16(M)
+    results["fused_split16"].update(
+        ms=timer.median_ms(
+            lambda: fused_split_encode_words(tiles, w, 10, threads, m=16)),
+        plain_ms=timer.median_ms(
+            lambda: fused_split_encode_words_plain(tiles, w, 10, tl, 16),
+            PLAIN_PANEL_REPS, warmup=False),
+        bound_ms=b_ms, bound_by=b_by, bound_xors=b_xors, threads=threads,
+        ksl=tiles.KT // 16, WC=tiles.WC, matrix="GF(2^16) RS(30,10) parity")
+    M, w = mats[(10, 4)], words[(10, 4)]
+    _, t1, p1, _ = codec16.plan_for(M, "fused")
+    b_ms, b_by, b_xors = matrix_bound16(M)
+    results["fused_encode16"].update(
+        ms=timer.median_ms(lambda: fused_encode_words(p1, w, 4, t1, m=16)),
+        plain_ms=timer.median_ms(
+            lambda: fused_encode_words_plain(p1, w, 4, tl, 16)),
+        bound_ms=b_ms, bound_by=b_by, bound_xors=b_xors, threads=t1,
+        slots=p1.n_slots, xors=p1.cost, matrix="GF(2^16) RS(10,4) parity")
+
+    # The lane pack at RS(10,4)'s shapes (the forced pipeline's), at the
+    # port's TL; the blocked pack at RS(50,20)'s.
+    planes = pack_words_lanes(w, tl, 16)
+    parity_planes = planes[:4].contiguous()
+    w50 = rand_words(rng, (50, TW), device)
+    bplanes = pack_words_lanes_blocked(w50, 16)
+    bparity = bplanes[:20].contiguous()
+    for name, kernel, plain, rows in (
+            ("pack_lanes16", lambda: pack_words_lanes(w, tl, 16),
+             lambda: pack_words_lanes_plain(w, tl, 16), 10),
+            ("unpack_lanes16", lambda: unpack_words_lanes(parity_planes, tl),
+             lambda: unpack_words_lanes_plain(parity_planes, tl), 4),
+            ("pack_lanes_blocked16",
+             lambda: pack_words_lanes_blocked(w50, 16),
+             lambda: pack_words_lanes_blocked_plain(w50, 16), 50),
+            ("unpack_lanes_blocked16",
+             lambda: unpack_words_lanes_blocked(bparity),
+             lambda: unpack_words_lanes_blocked_plain(bparity), 20)):
+        b_ms, b_by = bound(2 * rows * SHARD,
+                           rows * GROUPS16 * TRANSPOSE16_OPS)
+        results[name].update(ms=timer.median_ms(kernel),
+                             plain_ms=timer.median_ms(plain),
+                             bound_ms=b_ms, bound_by=b_by, rows=rows)
+    del bplanes, bparity, w50
+
+    # The interleaved entry per tier, beside the byte-sliced entry.
+    entry = {}
+    for (k, r), M in mats.items():
+        w = words[(k, r)]
+        wb = words16_to_bytesliced(w)
+        b_ms, b_by, b_xors = matrix_bound16(M)
+        row = {"bound_ms": b_ms, "bound_by": b_by, "bound_xors": b_xors,
+               "bytesliced_ms": timer.median_ms(
+                   lambda: codec16.matmul_words_bytesliced(M, wb))}
+        for tier in (None, "fused", "pipeline"):
+            if tier == "fused" and fused_plan(codec16.bits_rows_for(M),
+                                              16 * k) is None:
+                row["fused_ms"] = None  # no K1 plan holds the network
+                continue
+            row[f"{tier or 'planned'}_ms"] = timer.median_ms(
+                lambda: codec16.matmul_words(M, w, tier=tier))
+        row["planned_kind"] = codec16.plan_for(M)[0]
+        row["planned_over_bytesliced"] = row["planned_ms"] / row[
+            "bytesliced_ms"]
+        if (k, r) == (10, 4):
+            _, tp, prog, _ = codec16.plan_for(M, "pipeline")
+
+            def tier3():
+                x = pack_words16(w).reshape(160, 8, GROUPS16 // 8)
+                return unpack_words16(
+                    gf2_matmul_sparse(prog, x, tp).reshape(4, 16, GROUPS16))
+
+            check(torch.equal(tier3(), codec16.matmul_words(M, w)),
+                  "K10 -> K4 -> K10 vs the interleaved entry at RS(10,4)")
+            row["k10_k4_k10_ms"] = timer.median_ms(tier3)
+        entry[f"RS({k},{r})"] = row
+
+    streams = stream_times(rng, timer, device, (
+        ("rs16_30_10", 30, 10, STREAM16_30_10, LOST16_30_10, "gf65536"),
+        ("rs16_50_20", 50, 20, STREAM_50_20, SPLIT_LOST, "gf65536")))
+    return {"phase": "words16_times", "reps": REPS,
+            "stream_reps": STREAM_REPS, "interleaved_by_tier": entry,
+            "streams": streams}
 
 
 def phase_dense_times(rng, device, results: dict) -> dict:
@@ -2466,6 +2968,18 @@ def main() -> int:
                            "noise_ec_tpu/ops/pallas_pack.py:453"),
         "fused_split": ("noise_ec_tpu_torch/csrc/fused.cu",
                         "noise_ec_tpu/ops/pallas_fused.py:287"),
+        "fused_split16": ("noise_ec_tpu_torch/csrc/fused.cu",
+                          "noise_ec_tpu/ops/pallas_fused.py:287"),
+        "fused_encode16": ("noise_ec_tpu_torch/csrc/fused.cu",
+                           "noise_ec_tpu/ops/pallas_fused.py:145"),
+        "pack_lanes16": ("noise_ec_tpu_torch/csrc/pack.cu",
+                         "noise_ec_tpu/ops/pallas_pack.py:230"),
+        "unpack_lanes16": ("noise_ec_tpu_torch/csrc/pack.cu",
+                           "noise_ec_tpu/ops/pallas_pack.py:249"),
+        "pack_lanes_blocked16": ("noise_ec_tpu_torch/csrc/pack.cu",
+                                 "noise_ec_tpu/ops/pallas_pack.py:374"),
+        "unpack_lanes_blocked16": ("noise_ec_tpu_torch/csrc/pack.cu",
+                                   "noise_ec_tpu/ops/pallas_pack.py:394"),
         "pack_sublane": ("noise_ec_tpu_torch/csrc/pack.cu",
                          "noise_ec_tpu/ops/pallas_pack.py:76"),
         "unpack_sublane": ("noise_ec_tpu_torch/csrc/pack.cu",
@@ -2500,11 +3014,13 @@ def main() -> int:
     timed(phase_split_kernels, rng, device, results, codecs["gf256"],
           codecs["gf65536"])
     timed(phase_dense_kernels, rng, device, results)
+    timed(phase_words16_kernels, rng, device, results, codecs["gf65536"])
     main_path = timed(phase_main_path, rng, codecs)
     timed(phase_times, rng, device, results)
     timed(phase_panel_times, rng, device, results)
     timed(phase_gf16_times, rng, device, results)
     timed(phase_split_times, rng, device, results)
+    timed(phase_words16_times, rng, device, results)
     timed(phase_dense_times, rng, device, results)
     timed(phase_fec_times, rng, device)
     if args.panel_sweep:

@@ -47,6 +47,18 @@ __device__ __forceinline__ void transpose16(uint32_t* w) {
   swap_round<16>(w, 8, 0x00FF00FFu);
 }
 
+// The bit transpose of a group of N = 8 or 16 words (m bit-planes a
+// symbol): transpose8 or transpose16.
+template <int N>
+__device__ __forceinline__ void transpose_group(uint32_t* w) {
+  static_assert(N == 8 || N == 16, "groups of 8 or 16 words");
+  if constexpr (N == 8) {
+    transpose8(w);
+  } else {
+    transpose16(w);
+  }
+}
+
 // Operand of an XorProgram: a shared-memory slot (code >= 0, laid out
 // [slot][thread] so a warp's 32 reads hit 32 banks) or input plane
 // -1 - code read from device memory at plane stride P.

@@ -2,15 +2,16 @@
 product over bit-planes (an XOR network, or a dense int8 product past its
 budgets), in hand-written CUDA kernels for the H100 (``csrc/``).
 
-- ``pack``     — K2/K3, lane pack and unpack between words and bit-planes,
-  and their row-blocked use K6 on the panel route; K9 and K10, the
+- ``pack``     — K2/K3, lane pack and unpack between words and bit-planes
+  (8 or 16 planes a symbol), and their row-blocked use K6 on the panel
+  route; K9 and K10, the
   sublane-group pack and unpack at 8 and 16 planes (the reference's tier 3
   and GF(2^16) words), and the byte-sliced GF(2^16) layouts
 - ``gf2mm``    — K4, the sparse GF(2) matmul over tiled planes; K11/K12,
   the dense-mask GF(2) matmul with the mask matrix as an operand
 - ``fused``    — K1, pack + network + unpack in one launch, and K5, pack
-  + product + unpack in K slices on the GF(2) product core, with their
-  planners
+  + product + unpack in K slices on the GF(2) product core, each at 8 or
+  16 planes a symbol, with their planners
 - ``panel``    — K7, the block-panel K-tiled matmul for wide geometries on
   the same core, and its planner
 - ``gf2tile``  — the product core's operand (the matrix's bit expansion as

@@ -45,18 +45,18 @@ _p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # Pointers and the stream as c_void_p: a bare Python int would be passed
 # as a 32-bit int and cut the address.
 _SIGNATURES = {
-    "ec_pack_lanes": [_p, _p, _ll, _ll, _i, _p],
-    "ec_unpack_lanes": [_p, _p, _ll, _ll, _i, _p],
+    "ec_pack_lanes": [_p, _p, _ll, _ll, _i, _i, _p],
+    "ec_unpack_lanes": [_p, _p, _ll, _ll, _i, _i, _p],
     "ec_pack_groups8": [_p, _p, _ll, _ll, _ll, _p],
     "ec_unpack_groups8": [_p, _p, _ll, _ll, _ll, _p],
     "ec_pack_groups16": [_p, _p, _ll, _ll, _ll, _p],
     "ec_unpack_groups16": [_p, _p, _ll, _ll, _ll, _p],
     "ec_gf2mm": [_p, _p, _i, _ll, _i, _i, _p, _i, _p, _p, _i, _i, _p],
     "ec_gf2mm_dense": [_p, _p, _p, _i, _i, _ll, _p],
-    "ec_fused": [_p, _p, _i, _i, _i, _ll, _i, _p, _i, _p, _p, _p, _i, _i,
-                 _p],
+    "ec_fused": [_p, _p, _i, _i, _i, _ll, _i, _i, _p, _i, _p, _p, _p, _i,
+                 _i, _p],
     "ec_fused_split": [_p, _p, _p, _i, _i, _i, _ll, _i, _i, _i, _i, _i, _i,
-                       _i, _p],
+                       _i, _i, _p],
     "ec_panel": [_p, _p, _p, _i, _ll, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i,
                  _i, _p],
     "ec_mxu": [_p, _p, _p, _i, _i, _i, _ll, _i, _i, _i, _i, _p],

@@ -22,9 +22,13 @@ GF(2^16) runs byte-sliced: each u16 symbol row splits into adjacent lo/hi
 byte rows, and the m=8 routes above run over 2k byte rows with the
 matrix's unpermuted (16r, 16k) bit expansion (flat plane index
 16j + b == (2j + b//8)*8 + b%8). The interleaved-u16 words entry
-(:meth:`DeviceCodec.matmul_words` on a GF(2^16) codec) runs the same bits
-over 16 planes a shard instead: K10 pack -> K4 or K7 -> K10 unpack (the
-reference's tier 3; its tier 1 runs K1 or K5 at m = 16, not ported yet).
+(:meth:`DeviceCodec.matmul_words` on a GF(2^16) codec) runs the same bits,
+and the same plan, over 16 planes a shard instead, routed as the
+reference's ``_fused_words16_fn`` and ``_panel_words_fn(r, 16, ...)``:
+baked, K5 or K1 at m = 16, else the lane pipeline at m = 16 (K2 -> K4 ->
+K3), or the sublane one (K10 -> K4 -> K10, the reference's tier 3) where
+the reference's lane tile would not fit its rows (max(k, r) > 48); panel,
+K6 at m = 16 -> K7 -> K6.
 
 The codec runs on ``device`` ("cuda" unless the caller asks for "cpu").
 On the CPU every wrapper takes its kernel's plain PyTorch version; on the
@@ -80,6 +84,7 @@ from noise_ec_tpu_torch.ops.pack import (
     pack_words16,
     pack_words_lanes,
     pack_words_lanes_blocked,
+    reference_lane_tl,
     unpack_u16_bytesliced,
     unpack_words16,
     unpack_words_lanes,
@@ -360,7 +365,8 @@ class DeviceCodec:
                     threads, prog, G = panel_plan(bits_rows, C)
                     hit = ("panel", threads, prog, G)
                 else:
-                    hit = self._baked_plan(bits_rows, C, tier)
+                    hit = self._baked_plan(bits_rows, C, tier,
+                                           8 * self.sym_bytes)
             hit = hit[:2] + (hit[2].to(self.device), hit[3])
             if len(self._plan_cache) > 1024:
                 self._plan_cache.clear()
@@ -368,12 +374,15 @@ class DeviceCodec:
         return hit
 
     @staticmethod
-    def _baked_plan(bits_rows: tuple, C: int, tier: Optional[str]) -> tuple:
+    def _baked_plan(bits_rows: tuple, C: int, tier: Optional[str],
+                    m: int) -> tuple:
         """The baked route's (kind, threads, operand, 1) on the CPU: the
         first of K5, K1 and the pipeline that ``tier`` allows and whose
-        plan fits (:meth:`plan_for`)."""
+        plan fits (:meth:`plan_for`). K5's phases are whole symbol rows of
+        m planes, so one GF(2^16) plan serves K5 at m = 8 over byte rows
+        and at m = 16 over the interleaved words."""
         if tier in (None, "split"):
-            plan = fused_split_plan(bits_rows, C // 8, len(bits_rows) // 8)
+            plan = fused_split_plan(bits_rows, C // m, len(bits_rows) // m, m)
             if plan is not None:
                 threads, _, tiles = plan
                 return ("split", threads, tiles, 1)
@@ -417,9 +426,9 @@ class DeviceCodec:
         the whole batch (the kernels take the batch as a grid axis).
 
         On a GF(2^16) codec the words hold interleaved u16 symbols and run
-        K10 -> K4 (baked) or K7 (panel) -> K10; an "mxu" matrix raises
-        NotImplementedError there, as in the reference: K8 takes byte
-        rows (:meth:`matmul_words_bytesliced`)."""
+        the kernels at 16 planes a symbol (module doc), ``tier`` as on byte
+        rows; an "mxu" matrix raises NotImplementedError there, as in the
+        reference: K8 takes byte rows (:meth:`matmul_words_bytesliced`)."""
         M = np.asarray(M)
         self._check_words(words, M.shape[1])
         if self.sym_bytes == 1:
@@ -480,34 +489,47 @@ class DeviceCodec:
     def _words16(self, M: np.ndarray, words: torch.Tensor,
                  tier: Optional[str]) -> torch.Tensor:
         """Interleaved-u16 (B, k, TW) words -> (B, r, TW) over 16 planes a
-        shard: the (16r, 16k) network on K4 (baked) or K7 (panel)."""
-        route = self.route_for(M)
-        if route == "mxu":
+        shard, through M's plan (:meth:`plan_for`, the byte-sliced entry's
+        plan: its operands are the same planes) on the m = 16 kernels."""
+        if self.route_for(M) == "mxu":
             raise NotImplementedError(
                 "over-budget GF(2^16) matrices run K8 on the byte-sliced "
                 "entries (matmul_words_bytesliced / matmul_stripes), not "
                 "the interleaved words entry"
             )
-        if tier in ("fused", "split"):
-            raise ValueError(
-                "the interleaved GF(2^16) entry runs K10 -> K4 -> K10 on "
-                f"the baked route; tier {tier!r} is a byte-rows kernel"
-            )
-        kind, threads, prog, G = self.plan_for(
-            M, "pipeline" if route == "baked" else None)
+        kind, threads, prog, G = self.plan_for(M, tier)
         r, k = M.shape
         B, _, TW = words.shape
         TWp = pad_words(TW, WORD_QUANTUM16)
         if TWp != TW:
             words = F.pad(words, (0, TWp - TW))
-        W = TWp // 16
-        planes = pack_words16(words.contiguous().reshape(B * k, TWp))
-        planes = planes.reshape(B, 16 * k, 8, W // 8)
-        if kind == "panel":
-            out = gf2_matmul_panel_chain(prog, planes, threads, G)
+        words = words.contiguous()
+        W8 = TWp // 128
+        if kind == "split":
+            out = fused_split_encode_words(prog, words, r, threads,
+                                           lane_tl(TWp, 16), m=16)
+        elif kind == "fused":
+            out = fused_encode_words(prog, words, r, threads,
+                                     lane_tl(TWp, 16), m=16)
+        elif kind == "panel":
+            planes = pack_words_lanes_blocked(words.reshape(B * k, TWp), 16)
+            out = gf2_matmul_panel_chain(
+                prog, planes.reshape(B, 16 * k, 8, W8), threads, G)
+            out = unpack_words_lanes_blocked(out.reshape(B * r, 16, 8, W8))
+            out = out.reshape(B, r, TWp)
+        elif reference_lane_tl(TWp, 16, max(k, r)) is not None:
+            tl = lane_tl(TWp, 16)
+            planes = pack_words_lanes(words.reshape(B * k, TWp), tl, 16)
+            out = gf2_matmul_sparse(prog, planes.reshape(B, 16 * k, 8, W8),
+                                    threads)
+            out = unpack_words_lanes(out.reshape(B * r, 16, 8, W8), tl)
+            out = out.reshape(B, r, TWp)
         else:
-            out = gf2_matmul_sparse(prog, planes, threads)
-        out = unpack_words16(out.reshape(B * r, 16, W)).reshape(B, r, TWp)
+            planes = pack_words16(words.reshape(B * k, TWp))
+            out = gf2_matmul_sparse(prog, planes.reshape(B, 16 * k, 8, W8),
+                                    threads)
+            out = unpack_words16(out.reshape(B * r, 16, TWp // 16))
+            out = out.reshape(B, r, TWp)
         return out[:, :, :TW] if TWp != TW else out
 
     # -- the error-correcting decode's entries (matrix/bw.py) -------------

@@ -1,14 +1,16 @@
 """K2/K3: the lane pack and unpack between words and tiled bit-planes.
 
 Port of ``noise_ec_tpu.ops.pallas_pack``'s lane kernels
-(``_pack_lanes_kernel`` / ``_unpack_lanes_kernel``), CUDA source
-``csrc/pack.cu``. Words ``(rows, TW)`` int32 become planes
-``(rows, 8, 8, W8)``, W8 = TW / 64, with the reference's TL-dependent
-bijection: plane i of row j holds at ``(sigma, c*TL + l)`` bit i of the
-32 symbols in words ``c*64*TL + (sigma*8 + i')*TL + l``, i' = 0..7. The
-reference picks TL from its VMEM budget (``_lane_tl``); here it is a
-parameter, so a test can pass the reference's choice, and pack and unpack
-of one pipeline must be given the same TL.
+(``_pack_lanes_kernel`` / ``_unpack_lanes_kernel``) at m = 8 and m = 16
+bit-planes a symbol, CUDA source ``csrc/pack.cu``. Words ``(rows, TW)``
+int32 become planes ``(rows, m, 8, W8)``, W8 = TW / (8m), with the
+reference's TL-dependent bijection: plane i of row j holds at
+``(sigma, c*TL + l)`` bit i of the symbols in words
+``c*8*m*TL + (sigma*m + i')*TL + l``, i' = 0..m-1 (GF(2^8) bytes at
+m = 8; at m = 16, interleaved u16 symbols: symbol (word i', half h) at bit
+16h + i'). The reference picks TL from its VMEM budget (``_lane_tl``);
+here it is a parameter, so a test can pass the reference's choice, and
+pack and unpack of one pipeline must be given the same TL.
 
 Words are int32 views of the shard bytes: torch cannot shift uint32 on
 the CPU. ``>>`` on int32 is arithmetic, which is exact here because every
@@ -18,7 +20,8 @@ The row-blocked pair (:func:`pack_words_lanes_blocked`,
 :func:`unpack_words_lanes_blocked`) is the reference's wide-geometry
 variant (``_pack_lanes_blocked_call`` / ``_unpack_lanes_blocked_call``,
 K6): the same kernels, at the TL the reference pins to a 32-row block, so
-the panel pipeline's two ends agree whatever the row counts.
+the panel pipeline's two ends agree whatever the row counts. The m = 16
+forms count their launches apart (``*16``).
 
 The sublane pair (:func:`pack_words_sublane`, :func:`unpack_words_sublane`,
 K9) ports ``_pack_kernel`` / ``_unpack_kernel``, the reference's tier-3
@@ -42,6 +45,8 @@ kernel or raises. ``LAUNCHES`` counts kernel launches.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -51,7 +56,9 @@ _ROUNDS = ((1, 0x55555555), (2, 0x33333333), (4, 0x0F0F0F0F))
 _ROUNDS16 = _ROUNDS + ((8, 0x00FF00FF),)
 LAUNCHES = {"pack_lanes": 0, "unpack_lanes": 0, "pack_lanes_blocked": 0,
             "unpack_lanes_blocked": 0, "pack_sublane": 0,
-            "unpack_sublane": 0, "pack_words16": 0, "unpack_words16": 0}
+            "unpack_sublane": 0, "pack_words16": 0, "unpack_words16": 0,
+            "pack_lanes16": 0, "unpack_lanes16": 0,
+            "pack_lanes_blocked16": 0, "unpack_lanes_blocked16": 0}
 
 # The reference's row block for the wide-geometry pack, and the VMEM budget
 # its TL rule sizes that block's double-buffered in and out tiles against
@@ -69,29 +76,42 @@ def lane_quantum(m: int = 8) -> int:
     return 1024 * m
 
 
-def lane_tl(TW: int) -> int:
+def lane_tl(TW: int, m: int = 8) -> int:
     """The port's TL rule: the largest TL in {512, 256, 128} that divides
-    W8 = TW / 64. The reference also shrinks TL to fit its VMEM; a CUDA
-    thread holds one 8-word group whatever TL is, so here TL only fixes
+    W8 = TW / (8m). The reference also shrinks TL to fit its VMEM; a CUDA
+    thread holds one m-word group whatever TL is, so here TL only fixes
     the bijection (and the run a warp's loads cover)."""
     for TL in (512, 256, 128):
-        if TW % (64 * TL) == 0:
+        if TW % (8 * m * TL) == 0:
             return TL
-    raise ValueError(f"word count {TW} is not a multiple of {lane_quantum()}")
+    raise ValueError(
+        f"word count {TW} is not a multiple of {lane_quantum(m)}")
 
 
-def blocked_lane_tl(TW: int) -> int:
-    """The blocked pair's TL: the reference's ``_lane_tl(TW, 8, 32)``, the
-    largest TL in {512, 256, 128} dividing W8 = TW / 64 whose 32-row tiles
-    fit its VMEM budget — 256 whenever it divides (1 MiB shards), else
-    128. A CUDA thread packs one 8-word group whatever the row count, so
-    the reference's row-block grid axis, there only to fit VMEM, has no
-    counterpart here; only the TL it implies carries over."""
+def reference_lane_tl(TW: int, m: int, rows: int) -> Optional[int]:
+    """The reference's ``_lane_tl(TW, m, rows)`` (a copy of its rule): the
+    largest TL in {512, 256, 128} dividing W8 = TW / (8m) whose ``rows``-row
+    in and out tiles, double-buffered, fit its VMEM budget; None where the
+    reference raises. Its tier 2 runs where this is not None at
+    max(k, r) rows (at m = 16: up to 48 rows), its tier 3 elsewhere."""
     for TL in (512, 256, 128):
-        fits_vmem = PACK_ROW_BLOCK * 64 * TL * 4 * 4 <= _LANE_VMEM_BUDGET
-        if TW % (64 * TL) == 0 and fits_vmem:
+        fits_vmem = rows * 8 * m * TL * 4 * 4 <= _LANE_VMEM_BUDGET
+        if TW % (8 * m * TL) == 0 and fits_vmem:
             return TL
-    raise ValueError(f"word count {TW} is not a multiple of {lane_quantum()}")
+    return None
+
+
+def blocked_lane_tl(TW: int, m: int = 8) -> int:
+    """The blocked pair's TL: the reference's ``_lane_tl(TW, m, 32)`` —
+    at m = 8 256 whenever it divides W8 (1 MiB shards), else 128; at
+    m = 16 always 128. A CUDA thread packs one m-word group whatever the
+    row count, so the reference's row-block grid axis, there only to fit
+    VMEM, has no counterpart here; only the TL it implies carries over."""
+    tl = reference_lane_tl(TW, m, PACK_ROW_BLOCK)
+    if tl is None:
+        raise ValueError(
+            f"word count {TW} is not a multiple of {lane_quantum(m)}")
+    return tl
 
 
 def _delta_swap(V: torch.Tensor, dim: int, rounds) -> torch.Tensor:
@@ -118,100 +138,129 @@ def transpose16(V: torch.Tensor, dim: int) -> torch.Tensor:
     return _delta_swap(V, dim, _ROUNDS16)
 
 
-def _check(x: torch.Tensor, ndim: int, TW: int, tl: int) -> None:
+# The group transpose at m = 8 and 16 planes a symbol.
+_GROUP_TRANSPOSE = {8: transpose8, 16: transpose16}
+
+
+def _check(x: torch.Tensor, ndim: int, TW: int, tl: int, m: int) -> None:
     if x.dtype != torch.int32 or x.dim() != ndim or not x.is_contiguous():
         raise ValueError(
             f"expected a contiguous {ndim}-D int32 tensor, got {x.dtype} "
             f"{tuple(x.shape)}"
         )
-    if tl not in (128, 256, 512) or TW % (64 * tl):
-        raise ValueError(f"TL={tl} does not tile {TW} words")
+    if m not in _GROUP_TRANSPOSE:
+        raise ValueError(f"no lane layout for m={m}")
+    if tl not in (128, 256, 512) or TW % (8 * m * tl):
+        raise ValueError(f"TL={tl} does not tile {TW} words at m={m}")
 
 
 def _launch(fn: str, src: torch.Tensor, out: torch.Tensor, rows: int,
-            TW: int, tl_arg: int) -> None:
+            TW: int, tl_arg: int, *extra) -> None:
     if src.device.type != "cuda":
         raise ValueError(f"no kernel for device {src.device}")
-    _build.launch(fn, src, _build.ptr(src), _build.ptr(out), rows, TW, tl_arg)
+    _build.launch(fn, src, _build.ptr(src), _build.ptr(out), rows, TW, tl_arg,
+                  *extra)
 
 
-def pack_words_lanes_plain(words: torch.Tensor, tl: int) -> torch.Tensor:
-    """Plain PyTorch K2: (rows, TW) int32 words -> (rows, 8, 8, TW/64)."""
+def pack_words_lanes_plain(words: torch.Tensor, tl: int,
+                           m: int = 8) -> torch.Tensor:
+    """Plain PyTorch K2: (rows, TW) int32 words -> (rows, m, 8,
+    TW/(8m))."""
     rows, TW = words.shape
-    nc = TW // (64 * tl)
-    V = transpose8(words.reshape(rows, nc, 8, 8, tl), 3)  # [j, c, sigma, i, l]
-    return V.permute(0, 3, 2, 1, 4).reshape(rows, 8, 8, nc * tl).contiguous()
+    nc = TW // (8 * m * tl)
+    # [j, c, sigma, i, l]
+    V = _GROUP_TRANSPOSE[m](words.reshape(rows, nc, 8, m, tl), 3)
+    return V.permute(0, 3, 2, 1, 4).reshape(rows, m, 8, nc * tl).contiguous()
 
 
 def unpack_words_lanes_plain(planes: torch.Tensor, tl: int) -> torch.Tensor:
-    """Plain PyTorch K3: (rows, 8, 8, W8) planes -> (rows, 64*W8) words."""
-    rows, _, _, W8 = planes.shape
-    V = planes.reshape(rows, 8, 8, W8 // tl, tl).permute(0, 3, 2, 1, 4)
-    return transpose8(V, 3).reshape(rows, 64 * W8).contiguous()
+    """Plain PyTorch K3: (rows, m, 8, W8) planes -> (rows, 8*m*W8) words."""
+    rows, m, _, W8 = planes.shape
+    V = planes.reshape(rows, m, 8, W8 // tl, tl).permute(0, 3, 2, 1, 4)
+    return _GROUP_TRANSPOSE[m](V, 3).reshape(rows, 8 * m * W8).contiguous()
 
 
-def _pack(words: torch.Tensor, tl: int, counter: str) -> torch.Tensor:
+def _counter(name: str, m: int) -> str:
+    """The launch counter of kernel ``name`` at m planes a symbol (the
+    m = 16 forms count apart; ops/fused.py shares this rule)."""
+    return name if m == 8 else f"{name}16"
+
+
+def _pack(words: torch.Tensor, tl: int, m: int, counter: str) -> torch.Tensor:
     TW = words.shape[-1]
-    _check(words, 2, TW, tl)
+    _check(words, 2, TW, tl, m)
     if words.device.type == "cpu":
-        return pack_words_lanes_plain(words, tl)
+        return pack_words_lanes_plain(words, tl, m)
     rows = words.shape[0]
-    out = torch.empty((rows, 8, 8, TW // 64), dtype=torch.int32,
+    out = torch.empty((rows, m, 8, TW // (8 * m)), dtype=torch.int32,
                       device=words.device)
-    _launch("ec_pack_lanes", words, out, rows, TW, tl.bit_length() - 1)
-    LAUNCHES[counter] += 1
+    _launch("ec_pack_lanes", words, out, rows, TW, tl.bit_length() - 1, m)
+    LAUNCHES[_counter(counter, m)] += 1
     return out
 
 
 def _unpack(planes: torch.Tensor, tl: int, counter: str) -> torch.Tensor:
-    TW = 64 * planes.shape[-1]
-    _check(planes, 4, TW, tl)
-    if planes.shape[1:3] != (8, 8):
-        raise ValueError(f"expected (rows, 8, 8, W8) planes, got "
+    if planes.dim() != 4 or planes.shape[2] != 8:
+        raise ValueError(f"expected (rows, m, 8, W8) planes, got "
                          f"{tuple(planes.shape)}")
+    m = planes.shape[1]
+    TW = 8 * m * planes.shape[-1]
+    _check(planes, 4, TW, tl, m)
     if planes.device.type == "cpu":
         return unpack_words_lanes_plain(planes, tl)
     rows = planes.shape[0]
     out = torch.empty((rows, TW), dtype=torch.int32, device=planes.device)
-    _launch("ec_unpack_lanes", planes, out, rows, TW, tl.bit_length() - 1)
-    LAUNCHES[counter] += 1
+    _launch("ec_unpack_lanes", planes, out, rows, TW, tl.bit_length() - 1, m)
+    LAUNCHES[_counter(counter, m)] += 1
     return out
 
 
-def pack_words_lanes(words: torch.Tensor, tl: int) -> torch.Tensor:
-    """K2: (rows, TW) int32 words -> (rows, 8, 8, TW/64) tiled planes.
-    TW must be a multiple of 64*tl. Inverse: :func:`unpack_words_lanes`
-    at the same ``tl``."""
-    return _pack(words, tl, "pack_lanes")
+def pack_words_lanes(words: torch.Tensor, tl: int,
+                     m: int = 8) -> torch.Tensor:
+    """K2: (rows, TW) int32 words -> (rows, m, 8, TW/(8m)) tiled planes, m
+    = 8 (GF(2^8) bytes) or 16 (interleaved u16 symbols; counted apart, as
+    ``pack_lanes16``). TW must be a multiple of 8*m*tl. Inverse:
+    :func:`unpack_words_lanes` at the same ``tl``."""
+    return _pack(words, tl, m, "pack_lanes")
 
 
 def unpack_words_lanes(planes: torch.Tensor, tl: int) -> torch.Tensor:
-    """K3: (rows, 8, 8, W8) int32 planes -> (rows, 64*W8) words."""
+    """K3: (rows, m, 8, W8) int32 planes -> (rows, 8*m*W8) words; m (8 or
+    16) is the planes' second axis."""
     return _unpack(planes, tl, "unpack_lanes")
 
 
-def pack_words_lanes_blocked_plain(words: torch.Tensor) -> torch.Tensor:
+def pack_words_lanes_blocked_plain(words: torch.Tensor,
+                                   m: int = 8) -> torch.Tensor:
     """Plain PyTorch K6 pack: K2's plain version at :func:`blocked_lane_tl`."""
-    return pack_words_lanes_plain(words, blocked_lane_tl(words.shape[-1]))
+    return pack_words_lanes_plain(words, blocked_lane_tl(words.shape[-1], m),
+                                  m)
 
 
 def unpack_words_lanes_blocked_plain(planes: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch K6 unpack: K3's plain version at the blocked TL."""
+    m = planes.shape[1]
     return unpack_words_lanes_plain(
-        planes, blocked_lane_tl(64 * planes.shape[-1]))
+        planes, blocked_lane_tl(8 * m * planes.shape[-1], m))
 
 
-def pack_words_lanes_blocked(words: torch.Tensor) -> torch.Tensor:
-    """K6 pack: (rows, TW) int32 words -> (rows, 8, 8, TW/64) planes at
-    the blocked TL, any row count; K2's kernel with its own launch count.
+def pack_words_lanes_blocked(words: torch.Tensor, m: int = 8) -> torch.Tensor:
+    """K6 pack: (rows, TW) int32 words -> (rows, m, 8, TW/(8m)) planes at
+    the blocked TL, any row count; K2's kernel with its own launch count
+    (``pack_lanes_blocked``, ``pack_lanes_blocked16`` at m = 16).
     Inverse: :func:`unpack_words_lanes_blocked`."""
-    return _pack(words, blocked_lane_tl(words.shape[-1]), "pack_lanes_blocked")
+    return _pack(words, blocked_lane_tl(words.shape[-1], m), m,
+                 "pack_lanes_blocked")
 
 
 def unpack_words_lanes_blocked(planes: torch.Tensor) -> torch.Tensor:
-    """K6 unpack: (rows, 8, 8, W8) planes at the blocked TL -> (rows,
-    64*W8) words; K3's kernel with its own launch count."""
-    return _unpack(planes, blocked_lane_tl(64 * planes.shape[-1]),
+    """K6 unpack: (rows, m, 8, W8) planes at the blocked TL -> (rows,
+    8*m*W8) words; K3's kernel with its own launch count."""
+    if planes.dim() != 4:
+        raise ValueError(f"expected (rows, m, 8, W8) planes, got "
+                         f"{tuple(planes.shape)}")
+    m = planes.shape[1]
+    return _unpack(planes, blocked_lane_tl(8 * m * planes.shape[-1], m),
                    "unpack_lanes_blocked")
 
 
@@ -230,9 +279,6 @@ def tile_lanes(TW: int, group: int = 8) -> int:
             raise ValueError(
                 f"word count {TW} not divisible by {group}*128")
     return TL
-
-
-_GROUP_TRANSPOSE = {8: transpose8, 16: transpose16}
 
 
 def _pack_groups_plain(words: torch.Tensor, group: int) -> torch.Tensor:

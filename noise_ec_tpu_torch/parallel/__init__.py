@@ -2,7 +2,7 @@
 
 - ``batch``     — BatchCodec: multi-object encode/reconstruct through one
   batched dispatch (the reference's mesh entries raise: ROADMAP queue 1
-  item 7)
+  item 6)
 - ``streaming`` — the chunked, double-buffered pipeline for wide and long
   codes (RS(17,3), RS(50,20))
 """

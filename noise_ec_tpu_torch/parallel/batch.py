@@ -19,7 +19,7 @@ matrix, a GF(2^8) or GF(2^16) product over a batch of same-shape objects:
 The reference's ``kernel=`` argument becomes ``device=`` ("cuda" unless
 the caller asks for "cpu", where each kernel's plain version runs). The
 mesh entries (``make_sharded_*``) and the mesh router raise
-``NotImplementedError``: multi-device dispatch is ROADMAP queue 1 item 7.
+``NotImplementedError``: multi-device dispatch is ROADMAP queue 1 item 6.
 """
 
 from __future__ import annotations
@@ -40,7 +40,7 @@ _FIELDS = {"gf256": GF256, "gf65536": GF65536}
 _PATTERNS = 64
 
 _MESH_TODO = ("multi-device dispatch is not ported yet (ROADMAP queue 1 "
-              "item 7: batch-axis sharding and the TP split over NCCL)")
+              "item 6: batch-axis sharding and the TP split over NCCL)")
 
 
 def mesh_router():

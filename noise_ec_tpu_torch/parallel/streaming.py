@@ -32,7 +32,7 @@ since the k data rows are already the caller's. On the CPU
 (``device="cpu"``) the same code runs the kernels' plain versions with no
 copies in flight. The reference's ``noise_ec_stream_chunk_seconds``
 histogram is left out until the observability slice (ROADMAP queue 1
-item 2).
+item 1).
 """
 
 from __future__ import annotations

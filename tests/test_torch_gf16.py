@@ -283,9 +283,9 @@ def test_gf16_split_join_and_update(rng):
 
 @pytest.mark.parametrize("k,r,TW", [(10, 4, 2048), (20, 25, 16384 + 512)])
 def test_interleaved_words_match_the_bytesliced_entry(rng, k, r, TW):
-    """``matmul_words`` on interleaved u16 words (K10 -> K4 at RS(10,4),
-    K10 -> K7 at RS(20,25)) equals ``bytesliced_to_words16`` of the
-    byte-sliced entry and the host arithmetic."""
+    """``matmul_words`` on interleaved u16 words (K5 at m = 16 at RS(10,4),
+    K6 -> K7 -> K6 at m = 16 at RS(20,25)) equals ``bytesliced_to_words16``
+    of the byte-sliced entry and the host arithmetic."""
     codec = DeviceCodec(field="gf65536", device="cpu")
     M = ref_generator(RefGF65536(), k, k + r, "cauchy")[k:]
     w = _words(rng, (k, TW))
@@ -308,8 +308,11 @@ def test_interleaved_words_batch_and_refusals(rng):
         np.testing.assert_array_equal(
             _u32(got[b]).view("<u2"),
             RefGF65536().matvec_stripes(M, w[b].view("<u2")))
-    with pytest.raises(ValueError, match="fused"):
-        codec.matmul_words(M, _t(w[0]), tier="fused")
+    # The interleaved entry takes the byte rows' tiers (K1 and K5 at m = 16).
+    for tier in ("fused", "split"):
+        np.testing.assert_array_equal(
+            _u32(codec.matmul_words(M, _t(w[0]), tier=tier)).view("<u2"),
+            RefGF65536().matvec_stripes(M, w[0].view("<u2")))
     with pytest.raises(ValueError, match="gf65536"):
         DeviceCodec(device="cpu").matmul_words_bytesliced(
             M, torch.zeros((20, 64), dtype=torch.int32))

@@ -229,7 +229,7 @@ def test_planner_order_and_forced_split(codec, rng, monkeypatch):
     ran faster on K5 (PERF.md), so RS(4,2) through RS(50,20) plan onto it
     without factoring any network; forcing "fused" on RS(10,4) gives K1
     and the same bytes; forcing "split" on the interleaved GF(2^16) entry
-    raises."""
+    runs K5 at m = 16 and gives the host arithmetic's words."""
     import noise_ec_tpu_torch.ops.fused as fused
 
     def no_factoring(*args, **kwargs):
@@ -250,10 +250,11 @@ def test_planner_order_and_forced_split(codec, rng, monkeypatch):
     assert torch.equal(codec.matmul_words(M, w, tier="fused"),
                        codec.matmul_words(M, w))
     codec16 = DeviceCodec(field="gf65536", device="cpu")
-    with pytest.raises(ValueError, match="split"):
-        codec16.matmul_words(generator_matrix(GF65536(), 4, 6)[4:],
-                             torch.zeros((4, 64), dtype=torch.int32),
-                             tier="split")
+    M16 = generator_matrix(GF65536(), 4, 6)[4:]
+    w16 = _words(rng, (4, 64))
+    np.testing.assert_array_equal(
+        codec16.matmul_words(M16, _t(w16), tier="split").numpy().view("<u2"),
+        host_matvec(GF65536(), M16, w16.view("<u2")))
 
 
 def test_split_rejects_what_it_cannot_run(codec):

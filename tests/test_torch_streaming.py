@@ -198,7 +198,7 @@ def test_mesh_entries_are_not_ported():
                  lambda: bc.make_sharded_matmul_words(None, bc.parity_matrix),
                  lambda: bc.make_sharded_encoder_words(None),
                  mesh_router):
-        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
             call()
 
 
