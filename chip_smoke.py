@@ -11,7 +11,10 @@ before printing any result. Phases (one JSON line each):
    nvidia-smi);
 2. kernels — each kernel against its plain PyTorch version on the card, at
    the main path's shapes (1 MiB shards), byte for byte, and the fused
-   kernel also against the NumPy field arithmetic;
+   kernel K1 (on every matrix of :func:`matrices`) and the sparse matmul K4
+   (RS(10,4)'s parity and {0, 5, 11} recovery matrix) also against the
+   NumPy field arithmetic, each with its schedule's block (tile, warps,
+   slots, levels, program bytes);
    panel_kernels — the row-blocked pack and unpack (200 and 56 rows) at
    RS(200,56), and the panel matmul K7 on every matrix the panel route
    runs it on (RS(200,56)'s parity and (56,200) recovery matrix, RS(100,30),
@@ -46,7 +49,10 @@ before printing any result. Phases (one JSON line each):
    NumPy field arithmetic on a 64 KiB slice), K1@16 forced on RS(10,4)
    and RS(17,3) (also against K5@16), the lane pack and unpack at m = 16
    at TL = 128 and 512 on those words and at the blocked TL on RS(50,20)'s
-   shapes, a batch of three and ragged words through the codec;
+   shapes, a batch of three and ragged words through the codec, the
+   forced tier 3 at RS(49,2) kernel by kernel, and K4 alone on GF(2^16)
+   RS(30,10)'s 160 x 480 pipeline program (also against the NumPy field
+   arithmetic);
 3. main_path — ``ReedSolomon(10, 4)`` on the card: split a 10 MiB object,
    encode, verify, lose shards {0, 5, 11}, reconstruct, join; a batch of
    five 1 MiB stripes through the coalescer; RS(4,2) on a 64 KiB message;
@@ -247,6 +253,19 @@ def bound(nbytes: float, nops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def xornet_plan(threads: int, sched, columns: int, batch: int = 1) -> dict:
+    """A K1 or K4 plan's block for a call of ``batch`` x ``columns``
+    columns: the column tile it takes, its warps, the schedule's slots,
+    levels, program bytes, ring chunks and XORs."""
+    from noise_ec_tpu_torch.ops.network import pick_tile
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return {"tile": pick_tile(sched, columns, batch, sms),
+            "warps": threads // 32, "slots": sched.n_slots,
+            "levels": sched.n_levels, "program_bytes": sched.program_bytes,
+            "chunks": sched.n_chunks, "xors": sched.cost}
+
+
 def phase_build() -> dict:
     from noise_ec_tpu_torch.ops import _build
     from noise_ec_tpu_torch.ops.mxu import N_MENU
@@ -331,7 +350,6 @@ def phase_kernels(rng, device, results: dict) -> dict:
         gf2_matmul_sparse_plain,
         sparse_plan,
     )
-    from noise_ec_tpu_torch.ops.network import SMEM_BYTES, compile_network
     from noise_ec_tpu_torch.ops.pack import (
         pack_words_lanes,
         pack_words_lanes_plain,
@@ -357,17 +375,25 @@ def phase_kernels(rng, device, results: dict) -> dict:
 
     gf, mats = matrices()
     codec = DeviceCodec(device=device)
-    M = mats["RS(10,4)"]
-    threads, prog = sparse_plan(codec.bits_rows_for(M), 80)
-    prog = prog.to(device)
-    planes = pack_words_lanes(words, 512).reshape(80, 8, TW // 64)
-    out = gf2_matmul_sparse(prog, planes, threads)
-    err = max_abs_err(out, gf2_matmul_sparse_plain(prog, planes))
-    torch.cuda.synchronize()
-    check(err == 0, "sparse matmul RS(10,4) vs plain")
-    report["gf2mm_RS(10,4)"] = {"threads": threads, "slots": prog.n_slots,
-                                "xors": prog.cost}
-    results["gf2mm_sparse"]["max_abs_err"] = err
+    # K4 on RS(10,4)'s parity and {0, 5, 11} recovery matrix, against its
+    # plain version and, unpacked, the NumPy field arithmetic.
+    for name in ("RS(10,4)", "RS(10,4) reconstruct {0,5,11}"):
+        M = mats[name]
+        threads, prog = sparse_plan(codec.bits_rows_for(M), 80)
+        prog = prog.to(device)
+        planes = pack_words_lanes(words, 512).reshape(80, 8, TW // 64)
+        out = gf2_matmul_sparse(prog, planes, threads)
+        err = max_abs_err(out, gf2_matmul_sparse_plain(prog, planes))
+        back = unpack_words_lanes(
+            out.reshape(M.shape[0], 8, 8, TW // 64), 512)
+        host = host_matvec(gf, M, words.cpu().numpy().view(np.uint8))
+        torch.cuda.synchronize()
+        check(err == 0, f"sparse matmul {name} vs plain")
+        check(np.array_equal(back.cpu().numpy().view(np.uint8), host),
+              f"sparse matmul {name} vs host_matvec")
+        report[f"gf2mm_{name}"] = xornet_plan(threads, prog, TW // 8)
+        results["gf2mm_sparse"]["max_abs_err"] = max(
+            results["gf2mm_sparse"]["max_abs_err"], err)
 
     fused = {}
     for name, M in mats.items():
@@ -376,14 +402,7 @@ def phase_kernels(rng, device, results: dict) -> dict:
         t0 = time.monotonic()
         plan = fused_plan(bits_rows, 8 * k)
         planner = codec.plan_for(M)[0]
-        if plan is None:
-            # K1 cannot hold the whole factoring; hold it to its plain
-            # version all the same, on one warp a block with the temp cap
-            # that fills shared memory.
-            full = compile_network(bits_rows, 8 * k)
-            used = int((full.in_slot >= 0).sum())
-            cap = SMEM_BYTES // (4 * 32) - used
-            plan = (32, compile_network(bits_rows, 8 * k, max_temps=cap))
+        check(plan is not None, f"K1 holds {name}")
         plan_s = time.monotonic() - t0
         threads, prog = plan[0], plan[1].to(device)
         w = rand_words(rng, (k, TW), device)
@@ -395,7 +414,7 @@ def phase_kernels(rng, device, results: dict) -> dict:
         check(np.array_equal(out.cpu().numpy().view(np.uint8), host),
               f"fused {name} vs host_matvec")
         fused[name] = {"planner": planner, "threads": threads,
-                       "slots": prog.n_slots, "xors": prog.cost,
+                       **xornet_plan(threads, prog, TW // 8),
                        "plan_seconds": round(plan_s, 3)}
         results["fused_encode"]["max_abs_err"] = max(
             results["fused_encode"]["max_abs_err"], err)
@@ -891,7 +910,8 @@ def phase_words16_kernels(rng, device, results: dict, codec16) -> dict:
     through K5@16 and K1@16; ragged words (TW off the 16,384-word quantum)
     through the interleaved entry; and the forced tier 3 of main_path at
     RS(49,2) (:func:`tier3_matrix`), K10 pack, K4 and K10 unpack each at
-    that path's shapes."""
+    that path's shapes; and K4 alone on GF(2^16) RS(30,10)'s 160 x 480
+    pipeline program, against its plain version and the host."""
     from noise_ec_tpu_torch.ops.fused import (
         fused_encode_words,
         fused_encode_words_plain,
@@ -956,7 +976,7 @@ def phase_words16_kernels(rng, device, results: dict, codec16) -> dict:
             check(e1 == 0, f"K1@16 {name} vs plain")
             check(torch.equal(o1, out), f"K1@16 {name} vs K5@16")
             err["fused_encode16"] = max(err["fused_encode16"], e1)
-            entry["k1_threads"] = t1
+            entry["k1"] = xornet_plan(t1, p1, TW // 16)
         for tl in (128, lane_tl(TW, 16)):
             planes = pack_words_lanes(w, tl, 16)
             ep = max_abs_err(planes, pack_words_lanes_plain(w, tl, 16))
@@ -1039,9 +1059,29 @@ def phase_words16_kernels(rng, device, results: dict, codec16) -> dict:
     for name, e in (("pack_words16", ep), ("gf2mm_sparse", em),
                     ("unpack_words16", eu)):
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], e)
-    report["RS(49,2) tier 3"] = {"threads": tp, "planes": [784, 32],
-                                 "slots": prog.n_slots, "xors": prog.cost,
-                                 "equal": True}
+    report["RS(49,2) tier 3"] = {"planes": [784, 32], "equal": True,
+                                 **xornet_plan(tp, prog, TW // 16)}
+
+    # K4 alone on GF(2^16) RS(30,10)'s 160 x 480 pipeline program, on the
+    # lane pack's planes at m = 16, against its plain version and, unpacked,
+    # the NumPy field arithmetic.
+    M30 = cases["RS(30,10) parity"]
+    kind, tp, prog, _ = codec16.plan_for(M30, "pipeline")
+    w30 = rand_words(rng, (30, TW), device)
+    tl = lane_tl(TW, 16)
+    x = pack_words_lanes(w30, tl, 16).reshape(480, 8, TW // 128)
+    prod = gf2_matmul_sparse(prog, x, tp)
+    em = max_abs_err(prod, gf2_matmul_sparse_plain(prog, x))
+    back = unpack_words_lanes(prod.reshape(10, 16, 8, TW // 128), tl)
+    torch.cuda.synchronize()
+    check(em == 0, "K4 on GF(2^16) RS(30,10)'s pipeline program vs plain")
+    check(np.array_equal(back[:, :cols].cpu().numpy().view("<u2"),
+                         host_words16(M30, w30, cols)),
+          "K4 on GF(2^16) RS(30,10) vs host_matvec (64 KiB)")
+    results["gf2mm_sparse"]["max_abs_err"] = max(
+        results["gf2mm_sparse"]["max_abs_err"], em)
+    report["RS(30,10) K4"] = {"planes": [480, 160], "equal": True,
+                              **xornet_plan(tp, prog, TW // 16)}
     return report
 
 
@@ -2436,8 +2476,8 @@ def phase_split_times(rng, device, results: dict) -> dict:
             check(torch.equal(fused_encode_words(p1, w, r, t1),
                               fused_split_encode_words(p5, w, r, t5)),
                   f"RS({k},{r}) K1 vs K5")
-            row["k1"] = {"threads": t1, "slots": p1.n_slots,
-                         "xors": p1.cost, "ms": timer.median_ms(
+            row["k1"] = {"threads": t1, **xornet_plan(t1, p1, TW // 8),
+                         "ms": timer.median_ms(
                              lambda: fused_encode_words(p1, w, r, t1))}
         k1_vs_k5[f"RS({k},{r})"] = row
 
@@ -2458,6 +2498,7 @@ def phase_split_times(rng, device, results: dict) -> dict:
                               fused_split_encode_words(p5, w, r, t5)),
                   f"RS({k},{r}) K1 vs K5 at {tw} words")
             k1_vs_k5_small[f"RS({k},{r}) {4 * tw} B"] = {
+                "k1": xornet_plan(t1, p1, tw // 8),
                 "k1_ms": timer.median_ms(
                     lambda: fused_encode_words(p1, w, r, t1)),
                 "k5_ms": timer.median_ms(
@@ -2579,7 +2620,7 @@ def phase_words16_times(rng, device, results: dict) -> dict:
         plain_ms=timer.median_ms(
             lambda: fused_encode_words_plain(p1, w, 4, tl, 16)),
         bound_ms=b_ms, bound_by=b_by, bound_xors=b_xors, threads=t1,
-        slots=p1.n_slots, xors=p1.cost, matrix="GF(2^16) RS(10,4) parity")
+        **xornet_plan(t1, p1, GROUPS16), matrix="GF(2^16) RS(10,4) parity")
 
     # The lane pack at RS(10,4)'s shapes (the forced pipeline's), at the
     # port's TL; the blocked pack at RS(50,20)'s.

@@ -1,7 +1,6 @@
 // Device helpers shared by the port's kernels: the 8x8 and 16x16 bit
-// transposes that turn words into bit-planes (and back), and the interpreter
-// that runs an XorProgram (noise_ec_tpu_torch/ops/network.py) over values
-// held in shared-memory slots.
+// transposes that turn words into bit-planes (and back), and the opt-in to
+// more than 48 KB of dynamic shared memory.
 //
 // Words travel as int32 on the Python side (torch cannot shift uint32 on
 // the CPU); the kernels reinterpret the same bytes as uint32 so that every
@@ -57,45 +56,6 @@ __device__ __forceinline__ void transpose_group(uint32_t* w) {
   } else {
     transpose16(w);
   }
-}
-
-// Operand of an XorProgram: a shared-memory slot (code >= 0, laid out
-// [slot][thread] so a warp's 32 reads hit 32 banks) or input plane
-// -1 - code read from device memory at plane stride P.
-__device__ __forceinline__ uint32_t operand(int code, const uint32_t* slots,
-                                            int T, int tid,
-                                            const uint32_t* in, long long P) {
-  return code >= 0 ? slots[code * T + tid]
-                   : __ldg(in + (long long)(-1 - code) * P);
-}
-
-// slots[dst] = a ^ b for every op, in order. Every thread of a block reads
-// the same op, so the program loads are warp-uniform broadcasts.
-__device__ __forceinline__ void run_ops(const int* __restrict__ ops, int n_ops,
-                                        uint32_t* slots, int T, int tid,
-                                        const uint32_t* in, long long P) {
-  for (int i = 0; i < n_ops; ++i) {
-    const int t = __ldg(ops + 3 * i);
-    const int a = __ldg(ops + 3 * i + 1);
-    const int b = __ldg(ops + 3 * i + 2);
-    const uint32_t va = operand(a, slots, T, tid, in, P);
-    const uint32_t vb = operand(b, slots, T, tid, in, P);
-    slots[t * T + tid] = va ^ vb;
-  }
-}
-
-// XOR of output row r's terms (0 for an empty row).
-__device__ __forceinline__ uint32_t eval_row(const int* __restrict__ row_ptr,
-                                             const int* __restrict__ row_terms,
-                                             int r, const uint32_t* slots,
-                                             int T, int tid,
-                                             const uint32_t* in, long long P) {
-  uint32_t acc = 0;
-  const int end = __ldg(row_ptr + r + 1);
-  for (int e = __ldg(row_ptr + r); e < end; ++e) {
-    acc ^= operand(__ldg(row_terms + e), slots, T, tid, in, P);
-  }
-  return acc;
 }
 
 // Opt a kernel into more than 48 KB of dynamic shared memory (the H100

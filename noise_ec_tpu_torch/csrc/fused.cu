@@ -3,24 +3,26 @@
 // Replaces noise_ec_tpu/ops/pallas_fused.py _fused_kernel (the main-path
 // kernel of encode and reconstruct) at m = 8 and m = 16 bit-planes a
 // symbol. (B, k, TW) words -> (B, r, TW) words for the GF(2^8) or
-// GF(2^16) matrix whose factored (m r x m k) bit network is the XorProgram
-// operand (noise_ec_tpu_torch/ops/network.py); plane m j + i is bit i of
-// symbol row j.
+// GF(2^16) matrix whose factored (m r x m k) bit network is the
+// XorSchedule operand (noise_ec_tpu_torch/ops/network.py); plane m j + i is
+// bit i of symbol row j.
 //
 // Bound on the H100: bytes at the roofline (k + r words moved per word
 // position, 14 MiB for RS(10,4) at 1 MiB shards against 42 MiB for the
-// pack -> matmul -> unpack pipeline), but in practice the interpreted XOR
-// network (RS(10,4): 532 XORs, each two shared-memory reads and a write,
-// per 8-word group) and the low occupancy that its shared-memory slots
-// allow. Design: one thread per m-word group, templated on N = m. It
-// packs the group of every input row into bit-planes in registers with the
-// delta-swap transpose (the same indexing as the lane pack at tile TL, so
-// loads and stores are coalesced and the planes match K2's), parks the
-// planes in its shared-memory slots ([slot][thread], bank-conflict free),
-// runs the program, and transposes each output row's N planes back into
-// words. The planner (ops/fused.py) sizes the block so that slots fit in
-// 227 KB.
+// pack -> matmul -> unpack pipeline); in practice shared memory, three
+// wavefronts a warp an XOR (RS(10,4): 532 XORs per 8-word group).
+//
+// Design: the network executor (xornet.cuh), templated on the group N = m
+// and the tile of TILE groups a block. The block's threads split the tile's
+// k input rows x TILE groups: each loads the N words of one group of one
+// row (the lane pack's indexing at tile TL, so neighbouring groups are
+// neighbouring words and the loads coalesce), packs them into N bit-planes
+// in registers with the delta-swap transpose (the planes of K2), and parks
+// them in their slots, while the program's bulk copy is in flight. All the
+// block's warps then run the schedule's levels, and split the r output rows
+// x TILE groups to transpose each row's N planes back into words.
 #include "gf2tile.cuh"
+#include "xornet.cuh"
 
 using noise_ec::transpose_group;
 
@@ -35,86 +37,99 @@ __device__ __forceinline__ long long group_base(long long g, int tl_shift) {
          (g & (TL - 1));
 }
 
-template <int N>
-__global__ void fused_kernel(const uint32_t* __restrict__ in,
-                             uint32_t* __restrict__ out, int k, int r,
-                             long long TW, int tl_shift,
-                             const int* __restrict__ ops, int n_ops,
-                             const int* __restrict__ row_ptr,
-                             const int* __restrict__ row_terms,
-                             const int* __restrict__ in_slot) {
-  extern __shared__ uint32_t slots[];
-  const int T = blockDim.x;
-  const int tid = threadIdx.x;
-  const long long g = (long long)blockIdx.x * T + tid;  // N-word group
-  if (g >= TW / N) return;
+template <int N, int TILE>
+__global__ void __launch_bounds__(noise_ec::xornet::kMaxThreads)
+    fused_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
+                 int k, int r, long long TW, int tl_shift,
+                 const int* __restrict__ in_slot, noise_ec::xornet::Net net,
+                 const int* __restrict__ out_slot) {
+  namespace xn = noise_ec::xornet;
+  extern __shared__ __align__(16) unsigned char net_smem[];
+  const xn::Smem s = xn::carve(net_smem, net);
+  xn::begin(net, s);
+  const long long groups = TW / N;
+  const long long g0 = (long long)blockIdx.x * TILE;
   const long long b = blockIdx.y;
   const long long TL = 1LL << tl_shift;
-  const long long base = group_base<N>(g, tl_shift);
-  const uint32_t* src = in + b * k * TW + base;
-  uint32_t* dst = out + b * r * TW + base;
   uint32_t w[N];
-  for (int j = 0; j < k; ++j) {
+  for (int e = threadIdx.x; e < k * TILE; e += blockDim.x) {
+    const int j = e / TILE;
+    const int g = e % TILE;
+    if (g0 + g >= groups) continue;
+    const uint32_t* src =
+        in + (b * k + j) * TW + group_base<N>(g0 + g, tl_shift);
 #pragma unroll
-    for (int i = 0; i < N; ++i) w[i] = src[j * TW + i * TL];
+    for (int i = 0; i < N; ++i) w[i] = src[i * TL];
     transpose_group<N>(w);
 #pragma unroll
     for (int i = 0; i < N; ++i) {
-      const int s = __ldg(in_slot + j * N + i);
-      if (s >= 0) slots[s * T + tid] = w[i];
+      const int sl = __ldg(in_slot + j * N + i);
+      if (sl >= 0) s.slots[sl * TILE + g] = w[i];
     }
   }
-  // A program built for this kernel names no input plane directly, so the
-  // device-memory operand is never read.
-  noise_ec::run_ops(ops, n_ops, slots, T, tid, nullptr, 0);
-  for (int j = 0; j < r; ++j) {
+  __syncthreads();
+  xn::run<TILE, false>(net, s, xn::Loader{});
+  for (int e = threadIdx.x; e < r * TILE; e += blockDim.x) {
+    const int j = e / TILE;
+    const int g = e % TILE;
+    if (g0 + g >= groups) continue;
 #pragma unroll
     for (int i = 0; i < N; ++i) {
-      w[i] = noise_ec::eval_row(row_ptr, row_terms, j * N + i, slots, T, tid,
-                                nullptr, 0);
+      const int sl = __ldg(out_slot + j * N + i);
+      w[i] = sl >= 0 ? s.slots[sl * TILE + g] : 0u;
     }
     transpose_group<N>(w);
+    uint32_t* dst = out + (b * r + j) * TW + group_base<N>(g0 + g, tl_shift);
 #pragma unroll
-    for (int i = 0; i < N; ++i) dst[j * TW + i * TL] = w[i];
+    for (int i = 0; i < N; ++i) dst[i * TL] = w[i];
   }
 }
 
 template <int N>
 int launch_fused(const void* in, void* out, int batch, int k, int r,
-                 long long TW, int tl_shift, const void* ops, int n_ops,
-                 const void* row_ptr, const void* row_terms,
-                 const void* in_slot, int n_slots, int threads,
-                 void* stream) {
-  const long long groups = TW / N;
-  if (batch == 0 || groups == 0) return cudaSuccess;
-  const size_t smem = (size_t)n_slots * threads * sizeof(uint32_t);
-  cudaError_t err = noise_ec::allow_smem(fused_kernel<N>, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((groups + threads - 1) / threads), (unsigned)batch);
-  fused_kernel<N><<<grid, threads, smem, (cudaStream_t)stream>>>(
-      (const uint32_t*)in, (uint32_t*)out, k, r, TW, tl_shift,
-      (const int*)ops, n_ops, (const int*)row_ptr, (const int*)row_terms,
-      (const int*)in_slot);
-  return (int)cudaGetLastError();
+                 long long TW, int tl_shift, const void* in_slot,
+                 const noise_ec::xornet::Net& net, const void* out_slot,
+                 int tile, int threads, void* stream) {
+  return noise_ec::with_tile(tile, [&](auto t) {
+    constexpr int TILE = decltype(t)::value;
+    const size_t smem = noise_ec::xornet::smem_bytes(net, TILE);
+    cudaError_t err = noise_ec::allow_smem(fused_kernel<N, TILE>, smem);
+    if (err != cudaSuccess) return (int)err;
+    const long long groups = TW / N;
+    const dim3 grid((unsigned)((groups + TILE - 1) / TILE), (unsigned)batch);
+    fused_kernel<N, TILE><<<grid, threads, smem, (cudaStream_t)stream>>>(
+        (const uint32_t*)in, (uint32_t*)out, k, r, TW, tl_shift,
+        (const int*)in_slot, net, (const int*)out_slot);
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // namespace
 
 // m (8 or 16) bit-planes a symbol; TL = 1 << tl_shift must divide
-// TW / (8m).
+// TW / (8m). The schedule's arguments follow in_slot (ops/network.py
+// schedule_args): the packed pairs, level and chunk tables, chunk count,
+// chunk size, slot count, output slots, tile and threads.
 extern "C" int ec_fused(const void* in, void* out, int batch, int k, int r,
-                        long long TW, int tl_shift, int m, const void* ops,
-                        int n_ops, const void* row_ptr, const void* row_terms,
-                        const void* in_slot, int n_slots, int threads,
+                        long long TW, int tl_shift, int m,
+                        const void* in_slot, const void* pairs,
+                        const void* level_ptr, const void* chunk_level,
+                        int n_chunks, int chunk_pairs, int n_slots,
+                        const void* out_slot, int tile, int threads,
                         void* stream) {
+  if (batch == 0 || TW < m) return cudaSuccess;
+  if (threads % 32 || threads > noise_ec::xornet::kMaxThreads ||
+      batch > 65535)
+    return (int)cudaErrorInvalidValue;
+  const noise_ec::xornet::Net net{(const uint4*)pairs, (const int*)level_ptr,
+                                  (const int*)chunk_level, n_chunks,
+                                  chunk_pairs, n_slots};
   if (m == 8)
-    return launch_fused<8>(in, out, batch, k, r, TW, tl_shift, ops, n_ops,
-                           row_ptr, row_terms, in_slot, n_slots, threads,
-                           stream);
+    return launch_fused<8>(in, out, batch, k, r, TW, tl_shift, in_slot, net,
+                           out_slot, tile, threads, stream);
   if (m == 16)
-    return launch_fused<16>(in, out, batch, k, r, TW, tl_shift, ops, n_ops,
-                            row_ptr, row_terms, in_slot, n_slots, threads,
-                            stream);
+    return launch_fused<16>(in, out, batch, k, r, TW, tl_shift, in_slot, net,
+                            out_slot, tile, threads, stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -2,18 +2,20 @@
 //
 // Replaces noise_ec_tpu/ops/pallas_gf2mm.py _make_sparse_kernel, which bakes
 // one matrix's network into each compiled program. Here the network is an
-// operand (an XorProgram, noise_ec_tpu_torch/ops/network.py), so one build
+// operand (an XorSchedule, noise_ec_tpu_torch/ops/network.py), so one build
 // serves every geometry. (B, C, 8, W8) planes -> (B, R, 8, W8) planes; the
-// function is positionwise, so one thread owns one plane-word position p.
+// function is positionwise, so a block owns a tile of plane-word columns.
 //
 // Bound on the H100: bytes (C + R planes moved once; RS(10,4)'s 532 XORs
-// per 112 words moved stay under the logic-op roofline), though in practice
-// the interpreted network's dependent loads hold it back (PERF.md). Design:
-// inputs stay in device memory and are read where the program names them
-// (neighbouring threads read neighbouring words, and repeated reads of a
-// plane hit L1/L2); only the temporaries take shared-memory slots,
-// [slot][thread], so a temp cap bounds shared memory for any input width and
-// this kernel serves every matrix the fused kernel cannot hold.
+// per 112 words moved stay under the logic-op roofline); in practice shared
+// memory, three wavefronts a warp an XOR. Design: the network executor
+// (xornet.cuh). The schedule's load ops copy each input plane's tile into
+// a slot with cp.async one level before the level that first reads it, so
+// every op reads slots only (the reference's kernel likewise reads each
+// input plane once a grid step); where the inputs would not fit beside the
+// temporaries the schedule loads a plane again before each level that reads
+// it. After the last level the block's threads store the output rows' slots
+// to device memory, neighbouring threads on neighbouring words.
 //
 // K11/K12: the dense-mask GF(2) product with the mask matrix as an operand,
 // out[r, w] = XOR over c of (masks[r, c] & planes[c, w]), (R, C) masks x
@@ -29,7 +31,7 @@
 // so every thread reads the same words (broadcasts, four at a time); each
 // thread owns one word column and keeps its 32 row accumulators in
 // registers, reading each plane word of the chunk once, coalesced.
-#include "common.cuh"
+#include "xornet.cuh"
 
 namespace {
 
@@ -82,41 +84,59 @@ __global__ void gf2mm_dense_kernel(const uint32_t* __restrict__ masks,
   }
 }
 
-__global__ void gf2mm_kernel(const uint32_t* __restrict__ in,
-                             uint32_t* __restrict__ out, long long P, int C,
-                             int R, const int* __restrict__ ops, int n_ops,
-                             const int* __restrict__ row_ptr,
-                             const int* __restrict__ row_terms) {
-  extern __shared__ uint32_t slots[];
-  const int T = blockDim.x;
-  const int tid = threadIdx.x;
-  const long long p = (long long)blockIdx.x * T + tid;
-  if (p >= P) return;
+template <int TILE>
+__global__ void __launch_bounds__(noise_ec::xornet::kMaxThreads)
+    gf2mm_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
+                 long long P, int C, int R, noise_ec::xornet::Net net,
+                 const int* __restrict__ out_slot) {
+  namespace xn = noise_ec::xornet;
+  extern __shared__ __align__(16) unsigned char net_smem[];
+  const xn::Smem s = xn::carve(net_smem, net);
+  xn::begin(net, s);
+  const long long p0 = (long long)blockIdx.x * TILE;
   const long long b = blockIdx.y;
-  const uint32_t* src = in + b * C * P + p;
-  uint32_t* dst = out + b * R * P + p;
-  noise_ec::run_ops(ops, n_ops, slots, T, tid, src, P);
-  for (int r = 0; r < R; ++r) {
-    dst[(long long)r * P] =
-        noise_ec::eval_row(row_ptr, row_terms, r, slots, T, tid, src, P);
+  const int ncols = (int)min((long long)TILE, P - p0);
+  __syncthreads();
+  xn::run<TILE, true>(net, s, xn::Loader{in + b * C * P + p0, P, ncols});
+  uint32_t* dst = out + b * R * P + p0;
+  for (int e = threadIdx.x; e < R * TILE; e += blockDim.x) {
+    const int row = e / TILE;
+    const int c = e % TILE;
+    if (c >= ncols) continue;
+    const int sl = __ldg(out_slot + row);
+    dst[(long long)row * P + c] = sl >= 0 ? s.slots[sl * TILE + c] : 0u;
   }
 }
 
 }  // namespace
 
+// The schedule's arguments (ops/network.py schedule_args): the packed
+// pairs, level and chunk tables, chunk count, chunk size, slot count,
+// output slots, tile and threads.
 extern "C" int ec_gf2mm(const void* in, void* out, int batch, long long P,
-                        int C, int R, const void* ops, int n_ops,
-                        const void* row_ptr, const void* row_terms,
-                        int n_slots, int threads, void* stream) {
-  if (batch == 0 || P == 0) return cudaSuccess;
-  const size_t smem = (size_t)n_slots * threads * sizeof(uint32_t);
-  cudaError_t err = noise_ec::allow_smem(gf2mm_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((P + threads - 1) / threads), (unsigned)batch);
-  gf2mm_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-      (const uint32_t*)in, (uint32_t*)out, P, C, R, (const int*)ops, n_ops,
-      (const int*)row_ptr, (const int*)row_terms);
-  return (int)cudaGetLastError();
+                        int C, int R, const void* pairs,
+                        const void* level_ptr, const void* chunk_level,
+                        int n_chunks, int chunk_pairs, int n_slots,
+                        const void* out_slot, int tile, int threads,
+                        void* stream) {
+  if (batch == 0 || P == 0 || R == 0) return cudaSuccess;
+  if (threads % 32 || threads > noise_ec::xornet::kMaxThreads ||
+      batch > 65535)
+    return (int)cudaErrorInvalidValue;
+  const noise_ec::xornet::Net net{(const uint4*)pairs, (const int*)level_ptr,
+                                  (const int*)chunk_level, n_chunks,
+                                  chunk_pairs, n_slots};
+  return noise_ec::with_tile(tile, [&](auto t) {
+    constexpr int TILE = decltype(t)::value;
+    const size_t smem = noise_ec::xornet::smem_bytes(net, TILE);
+    cudaError_t err = noise_ec::allow_smem(gf2mm_kernel<TILE>, smem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((unsigned)((P + TILE - 1) / TILE), (unsigned)batch);
+    gf2mm_kernel<TILE><<<grid, threads, smem, (cudaStream_t)stream>>>(
+        (const uint32_t*)in, (uint32_t*)out, P, C, R, net,
+        (const int*)out_slot);
+    return (int)cudaGetLastError();
+  });
 }
 
 extern "C" int ec_gf2mm_dense(const void* masks, const void* planes, void* out,

@@ -51,10 +51,11 @@ _SIGNATURES = {
     "ec_unpack_groups8": [_p, _p, _ll, _ll, _ll, _p],
     "ec_pack_groups16": [_p, _p, _ll, _ll, _ll, _p],
     "ec_unpack_groups16": [_p, _p, _ll, _ll, _ll, _p],
-    "ec_gf2mm": [_p, _p, _i, _ll, _i, _i, _p, _i, _p, _p, _i, _i, _p],
+    "ec_gf2mm": [_p, _p, _i, _ll, _i, _i, _p, _p, _p, _i, _i, _i, _p, _i, _i,
+                 _p],
     "ec_gf2mm_dense": [_p, _p, _p, _i, _i, _ll, _p],
-    "ec_fused": [_p, _p, _i, _i, _i, _ll, _i, _i, _p, _i, _p, _p, _p, _i,
-                 _i, _p],
+    "ec_fused": [_p, _p, _i, _i, _i, _ll, _i, _i, _p, _p, _p, _p, _i, _i,
+                 _i, _p, _i, _i, _p],
     "ec_fused_split": [_p, _p, _p, _i, _i, _i, _ll, _i, _i, _i, _i, _i, _i,
                        _i, _i, _p],
     "ec_panel": [_p, _p, _p, _i, _ll, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i,

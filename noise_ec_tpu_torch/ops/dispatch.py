@@ -76,7 +76,7 @@ from noise_ec_tpu_torch.ops.mxu import (
     build_mxu_tiles,
     mxu_encode_tiles,
 )
-from noise_ec_tpu_torch.ops.network import BLOCK_SIZES, SMEM_BYTES
+from noise_ec_tpu_torch.ops.network import SMEM_BYTES
 from noise_ec_tpu_torch.ops.pack import (
     lane_quantum,
     lane_tl,
@@ -101,13 +101,13 @@ _FIELDS = {"gf256": GF256, "gf65536": GF65536}
 # does not depend on the card.
 _BAKED_XOR_BUDGET = 60_000
 
-# The fused kernel parks all 8K input planes of a thread in shared memory
-# before its network runs, so even its smallest block (one warp) needs
+# The fused kernel parks all 8K input planes of its column tile in shared
+# memory before its network runs, so a warp's 32-column tile needs
 # 8 * K * 32 * 4 B <= 227 KB over K byte rows: K <= 227 (k for GF(2^8), 2k
 # for GF(2^16)). Output rows take no slots, and the pipeline's kernels hold
 # no whole rows at all. The reference's bound (96, on max(k, r) byte rows)
 # models its TPU pack stage's VMEM tiles instead.
-_BAKED_MAX_ROWS = SMEM_BYTES // (8 * BLOCK_SIZES[-1] * 4)
+_BAKED_MAX_ROWS = SMEM_BYTES // (8 * 32 * 4)
 
 # Past this raw-XOR budget the reference leaves the XOR-network kernels for
 # the dense MXU product (pallas_gf2mm.PANEL_XOR_BUDGET), and so does the

@@ -30,11 +30,14 @@ factors no network.
    input rows that a shared-memory ring stages: the plan is the widest
    block whose ring fits 227 KB. No network is factored.
 2. K1 (:func:`fused_plan`, the counterpart of ``single_fused_plan``)
-   keeps every input plane and live temporary of its thread in
-   shared-memory slots: the largest block whose slots fit 227 KB with the
-   full factoring, else a temp cap that fits while the capped network
-   costs at most ``_CAP_COST_RATIO`` of the full one (the reference's
-   rule).
+   keeps every input plane and live temporary of its block's column tile
+   in shared-memory slots, and runs the network's level schedule
+   (ops/network.py :class:`~noise_ec_tpu_torch.ops.network.XorSchedule`)
+   with all its warps: the full factoring where its slots fit some tile,
+   else a temp cap that fits while the capped network costs at most
+   ``_CAP_COST_RATIO`` of the full one (the reference's rule). A call
+   takes the widest tile that still fills the card
+   (:func:`~noise_ec_tpu_torch.ops.network.pick_tile`).
 3. With neither, the matrix runs the K2 -> K4 -> K3 pipeline.
 """
 
@@ -59,12 +62,14 @@ from noise_ec_tpu_torch.ops.gf2tile import (
     row_groups,
 )
 from noise_ec_tpu_torch.ops.network import (
-    BLOCK_SIZES,
     SMEM_BYTES,
-    XorProgram,
+    TILES,
+    XorSchedule,
+    block_threads,
     compile_network,
     eval_program,
-    fits,
+    plan_schedule,
+    schedule_args,
 )
 from noise_ec_tpu_torch.ops.pack import (
     _counter,
@@ -89,22 +94,29 @@ SPLIT_PLANES = 8 * SPLIT_KSL
 
 
 @functools.lru_cache(maxsize=256)
-def fused_plan(bits_rows: tuple, C: int) -> Optional[tuple[int, XorProgram]]:
-    """(threads, program) for K1 over C = m k input planes, or None when no
-    block holds the matrix (module doc)."""
+def fused_plan(bits_rows: tuple, C: int
+               ) -> Optional[tuple[int, XorSchedule]]:
+    """(threads, schedule) for K1 over C = m k input planes, or None when
+    no block holds the matrix (module doc). Where the full factoring's
+    schedule fits no tile, its output rows are summed in chains (one
+    partial sum a row); then a temp cap starts where the used inputs and
+    the temps would fill the narrowest tile and halves until the schedule
+    fits or the capped network costs too much."""
     full = compile_network(bits_rows, C)
-    for threads in BLOCK_SIZES:
-        if fits(full, threads):
-            return threads, full
+    for width in (None, 1):
+        sched = plan_schedule(full, row_width=width)
+        if sched is not None:
+            return block_threads(sched), sched
     used = int((full.in_slot >= 0).sum())
-    for threads in BLOCK_SIZES:
-        # Live values never exceed the used inputs plus the temps.
-        cap = SMEM_BYTES // (4 * threads) - used
-        if cap < 1:
-            continue
+    cap = SMEM_BYTES // (4 * TILES[-1]) - used
+    while cap >= 1:
         prog = compile_network(bits_rows, C, max_temps=cap)
-        if prog.cost <= _CAP_COST_RATIO * full.cost and fits(prog, threads):
-            return threads, prog
+        if prog.cost > _CAP_COST_RATIO * full.cost:
+            break  # a smaller cap factors less and costs more
+        sched = plan_schedule(prog, row_width=1)
+        if sched is not None:
+            return block_threads(sched), sched
+        cap //= 2
     return None
 
 
@@ -149,16 +161,17 @@ def _words(planes: torch.Tensor, r: int, tl: int, m: int) -> torch.Tensor:
     return unpack_words_lanes_plain(planes.reshape(r, m, 8, -1), tl)
 
 
-def fused_encode_words_plain(prog: XorProgram, words: torch.Tensor, r: int,
-                             tl: int, m: int = 8) -> torch.Tensor:
-    """Plain PyTorch K1 on (k, TW) or (B, k, TW) words: pack, program,
-    unpack — the kernel's arithmetic, with planes in tensors instead of
-    registers and slots."""
+def fused_encode_words_plain(sched: XorSchedule, words: torch.Tensor,
+                             r: int, tl: int, m: int = 8) -> torch.Tensor:
+    """Plain PyTorch K1 on (k, TW) or (B, k, TW) words: pack, the
+    schedule's program (:func:`~noise_ec_tpu_torch.ops.network.
+    eval_program`), unpack — the kernel's function, with planes in tensors
+    instead of registers and slots."""
     if words.dim() == 3:
         return torch.stack(
-            [fused_encode_words_plain(prog, w, r, tl, m) for w in words]
+            [fused_encode_words_plain(sched, w, r, tl, m) for w in words]
         )
-    return _words(eval_program(prog, _planes(words, tl, m)), r, tl, m)
+    return _words(eval_program(sched.prog, _planes(words, tl, m)), r, tl, m)
 
 
 def _check_words(words: torch.Tensor, tl: Optional[int], m: int) -> int:
@@ -185,51 +198,38 @@ def _check_device(words: torch.Tensor, operand: torch.Tensor) -> None:
         )
 
 
-def _check(prog, words: torch.Tensor, r: int, threads: int,
-           tl: Optional[int], m: int) -> int:
-    """Validate K1's program and words (the program's planes and rows, the
-    words' type and layout and, for a kernel launch, their device and the
-    block's shared memory); returns the lane tile."""
-    k = words.shape[-2]
-    if (prog.in_slot is None or prog.n_inputs != m * k
-            or prog.n_rows != m * r):
-        raise ValueError(
-            f"program ({prog.n_inputs} inputs, {prog.n_rows} rows) does not "
-            f"fit k={k}, r={r}, m={m} on the fused kernel"
-        )
-    tl = _check_words(words, tl, m)
-    if words.device.type != "cpu":
-        _check_device(words, prog.ops)
-        if not fits(prog, threads):
-            raise ValueError(
-                f"{prog.n_slots} slots x {threads} threads exceed shared "
-                "memory"
-            )
-    return tl
-
-
-def fused_encode_words(prog: XorProgram, words: torch.Tensor, r: int,
-                       threads: int, tl: Optional[int] = None,
-                       m: int = 8) -> torch.Tensor:
+def fused_encode_words(sched: XorSchedule, words: torch.Tensor, r: int,
+                       threads: int, tl: Optional[int] = None, m: int = 8,
+                       tile: Optional[int] = None) -> torch.Tensor:
     """K1: (k, TW) or (B, k, TW) int32 words -> (.., r, TW) int32 words,
     at m = 8 or 16 bit-planes a symbol (counted apart at 16, as
     ``fused_encode16``).
 
-    ``prog`` is built with ``inputs_in_slots=True`` over m k planes into
-    m r rows; TW must be a multiple of 8*m*tl (``tl`` defaults to
+    ``sched`` is the schedule of a program built with
+    ``inputs_in_slots=True`` over m k planes into m r rows (``threads`` is
+    its plan's block, one of :data:`~noise_ec_tpu_torch.ops.network.
+    BLOCKS`); TW must be a multiple of 8*m*tl (``tl`` defaults to
     :func:`~noise_ec_tpu_torch.ops.pack.lane_tl`; the result does not
-    depend on it)."""
-    tl = _check(prog, words, r, threads, tl, m)
+    depend on it). ``tile`` (groups of m words a block) defaults to
+    :func:`~noise_ec_tpu_torch.ops.network.pick_tile`'s."""
+    k = words.shape[-2]
+    if (sched.in_slot is None or sched.n_inputs != m * k
+            or sched.n_rows != m * r):
+        raise ValueError(
+            f"schedule ({sched.n_inputs} inputs, {sched.n_rows} rows) does "
+            f"not fit k={k}, r={r}, m={m} on the fused kernel"
+        )
+    tl = _check_words(words, tl, m)
     if words.device.type == "cpu":
-        return fused_encode_words_plain(prog, words, r, tl, m)
+        return fused_encode_words_plain(sched, words, r, tl, m)
+    _check_device(words, sched.pairs)
     batched = words if words.dim() == 3 else words[None]
     B, k, TW = batched.shape
+    tile, net = schedule_args(sched, words, threads, TW // m, B, tile)
     out = torch.empty((B, r, TW), dtype=torch.int32, device=words.device)
     _build.launch(
         "ec_fused", words, _build.ptr(batched), _build.ptr(out), B, k, r, TW,
-        tl.bit_length() - 1, m, _build.ptr(prog.ops), prog.ops.shape[0],
-        _build.ptr(prog.row_ptr), _build.ptr(prog.row_terms),
-        _build.ptr(prog.in_slot), prog.n_slots, threads,
+        tl.bit_length() - 1, m, _build.ptr(sched.in_slot), *net,
     )
     LAUNCHES[_counter("fused_encode", m)] += 1
     return out if words.dim() == 3 else out[0]

@@ -5,14 +5,18 @@ Port of ``noise_ec_tpu.ops.pallas_gf2mm._make_sparse_kernel`` (via
 ``gf2_matmul_pallas_sparse_rows``), CUDA source ``csrc/gf2mm.cu``. Planes
 ``(C, 8, W8)`` int32 -> ``(R, 8, W8)``: output plane r is the XOR of the
 input planes of row r of the bit matrix, evaluated through the
-Paar-factored :class:`~noise_ec_tpu_torch.ops.network.XorProgram`. The
-reference bakes the network into each compiled program; here it is an
-operand, so one build serves every geometry.
+Paar-factored :class:`~noise_ec_tpu_torch.ops.network.XorProgram`, run
+from its level schedule (:class:`~noise_ec_tpu_torch.ops.network.
+XorSchedule`). The reference bakes the network into each compiled
+program; here it is an operand, so one build serves every geometry.
 
-This kernel reads its inputs from device memory and keeps only the
-temporaries in shared memory, so a temp cap fits any matrix: it is stage 2
-of the K2 -> K4 -> K3 pipeline that carries the matrices the fused kernel
-cannot hold (ops/fused.py).
+The schedule's load ops bring a block's input planes into shared-memory
+slots with ``cp.async``, one level before the level that first reads
+them, the counterpart of the reference's one read per input plane a grid
+step. Where the inputs would not fit beside the temporaries, each load
+comes again before every level that reads the plane (``reload``), and a
+temp cap fits any matrix: K4 is stage 2 of the K2 -> K4 -> K3 pipeline
+that carries the matrices the fused kernels cannot hold (ops/fused.py).
 
 K11 and K12 port ``pallas_gf2mm._kernel`` (``gf2_matmul_pallas``) and
 ``_tiled_dense_kernel`` (``gf2_matmul_pallas_tiled``): the product with the
@@ -30,18 +34,21 @@ reference pads to its tile and slices back.
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
 
 from noise_ec_tpu_torch.ops import _build
 from noise_ec_tpu_torch.ops.network import (
-    BLOCK_SIZES,
     SMEM_BYTES,
-    XorProgram,
+    TILES,
+    XorSchedule,
+    block_threads,
     compile_network,
     eval_program,
-    fits,
+    plan_schedule,
+    schedule_args,
 )
 
 LAUNCHES = {"gf2mm_sparse": 0,
@@ -57,65 +64,75 @@ def bits_to_rows(bits) -> tuple[tuple[int, ...], ...]:
 
 
 @functools.lru_cache(maxsize=256)
-def sparse_plan(bits_rows: tuple, C: int) -> tuple[int, XorProgram]:
-    """(threads, program) for K4: the largest block whose temp slots fit
-    the full factoring; else 32 threads and the temp cap that fills 227 KB
-    (the program then does more XORs, but every matrix gets a plan)."""
+def sparse_plan(bits_rows: tuple, C: int) -> tuple[int, XorSchedule]:
+    """(threads, schedule) for K4: the full factoring with its inputs
+    loaded once where its slots fit some tile, else loaded before every
+    level that reads them (``reload``), else with its output rows summed
+    in chains too; else the temp cap that fills the narrowest tile,
+    halved until the schedule fits (the program then does more XORs, but
+    every matrix gets a plan)."""
     prog = compile_network(bits_rows, C, inputs_in_slots=False)
-    for threads in BLOCK_SIZES:
-        if fits(prog, threads):
-            return threads, prog
-    threads = BLOCK_SIZES[-1]
-    cap = SMEM_BYTES // (4 * threads)
-    return threads, compile_network(
-        bits_rows, C, max_temps=cap, inputs_in_slots=False
-    )
+    for reload, width in ((False, None), (True, None), (True, 1)):
+        sched = plan_schedule(prog, reload, width)
+        if sched is not None:
+            return block_threads(sched), sched
+    cap = SMEM_BYTES // (4 * TILES[-1])
+    while True:
+        prog = compile_network(bits_rows, C, max_temps=cap,
+                               inputs_in_slots=False)
+        sched = plan_schedule(prog, True, 1)
+        if sched is not None:
+            return block_threads(sched), sched
+        if cap == 0:
+            raise ValueError(f"no K4 schedule of {len(bits_rows)} rows over "
+                             f"{C} planes fits shared memory")
+        cap //= 2
 
 
-def gf2_matmul_sparse_plain(prog: XorProgram,
+def gf2_matmul_sparse_plain(sched: XorSchedule,
                             planes: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch K4 on (C, 8, W8) or (B, C, 8, W8) planes."""
+    """Plain PyTorch K4 on (C, 8, W8) or (B, C, 8, W8) planes: the
+    schedule's program (:func:`~noise_ec_tpu_torch.ops.network.
+    eval_program`)."""
     if planes.dim() == 4:
-        return torch.stack([eval_program(prog, p) for p in planes])
-    return eval_program(prog, planes)
+        return torch.stack([eval_program(sched.prog, p) for p in planes])
+    return eval_program(sched.prog, planes)
 
 
-def gf2_matmul_sparse(prog: XorProgram, planes: torch.Tensor,
-                      threads: int) -> torch.Tensor:
+def gf2_matmul_sparse(sched: XorSchedule, planes: torch.Tensor,
+                      threads: int, tile: Optional[int] = None
+                      ) -> torch.Tensor:
     """K4: (C, 8, W8) or (B, C, 8, W8) int32 planes -> (.., R, 8, W8)
-    through ``prog`` (built with ``inputs_in_slots=False``), ``threads``
-    threads a block."""
-    if prog.in_slot is not None:
+    through ``sched`` (the schedule of a program built with
+    ``inputs_in_slots=False``; ``threads`` is its plan's block, one of
+    :data:`~noise_ec_tpu_torch.ops.network.BLOCKS`). ``tile`` (plane
+    words a block) defaults to
+    :func:`~noise_ec_tpu_torch.ops.network.pick_tile`'s."""
+    if sched.in_slot is not None:
         raise ValueError("K4 takes a program whose inputs stay in memory")
     if (planes.dtype != torch.int32 or planes.dim() not in (3, 4)
             or not planes.is_contiguous()
-            or planes.shape[-3] != prog.n_inputs):
+            or planes.shape[-3] != sched.n_inputs):
         raise ValueError(
-            f"expected contiguous int32 (.., {prog.n_inputs}, 8, W8) planes, "
-            f"got {planes.dtype} {tuple(planes.shape)}"
+            f"expected contiguous int32 (.., {sched.n_inputs}, 8, W8) "
+            f"planes, got {planes.dtype} {tuple(planes.shape)}"
         )
     if planes.device.type == "cpu":
-        return gf2_matmul_sparse_plain(prog, planes)
-    if planes.device.type != "cuda" or prog.ops.device != planes.device:
-        raise ValueError(
-            f"no kernel for planes on {planes.device} and a program on "
-            f"{prog.ops.device}"
-        )
-    if not fits(prog, threads):
-        raise ValueError(
-            f"{prog.n_slots} slots x {threads} threads exceed shared memory"
-        )
+        return gf2_matmul_sparse_plain(sched, planes)
+    if planes.device.type != "cuda":
+        raise ValueError(f"no kernel for planes on {planes.device}")
     batched = planes if planes.dim() == 4 else planes[None]
+    if batched.data_ptr() % 16:
+        raise ValueError("K4's loads copy 16 bytes: planes must be 16-byte "
+                         "aligned")
     B, C = batched.shape[:2]
     P = batched.shape[2] * batched.shape[3]
-    R = prog.n_rows
+    R = sched.n_rows
+    tile, net = schedule_args(sched, planes, threads, P, B, tile)
     out = torch.empty((B, R) + tuple(batched.shape[2:]), dtype=torch.int32,
                       device=planes.device)
-    _build.launch(
-        "ec_gf2mm", planes, _build.ptr(batched), _build.ptr(out), B, P, C, R,
-        _build.ptr(prog.ops), prog.ops.shape[0], _build.ptr(prog.row_ptr),
-        _build.ptr(prog.row_terms), prog.n_slots, threads,
-    )
+    _build.launch("ec_gf2mm", planes, _build.ptr(batched), _build.ptr(out),
+                  B, P, C, R, *net)
     LAUNCHES["gf2mm_sparse"] += 1
     return out if planes.dim() == 4 else out[0]
 

@@ -20,7 +20,14 @@ from noise_ec_tpu_torch.ops.fused import (
     fused_plan,
 )
 from noise_ec_tpu_torch.ops.gf2mm import sparse_plan
-from noise_ec_tpu_torch.ops.network import SMEM_BYTES, compile_network, fits
+from noise_ec_tpu_torch.ops.network import (
+    BLOCKS,
+    SMEM_BYTES,
+    TILES,
+    compile_network,
+    fits,
+    schedule_program,
+)
 
 _GF = RefGF256()
 _REF = RefDeviceCodec(field="gf256", kernel="pallas_interpret")
@@ -77,22 +84,25 @@ def test_fused_result_does_not_depend_on_the_lane_tile(rng):
 
 
 @pytest.mark.parametrize("k,r,threads,slots", [
-    (4, 2, 256, 60), (10, 4, 256, 218), (17, 3, 128, 295),
+    (4, 2, 256, 77), (10, 4, 512, 306), (17, 3, 512, 347),
 ])
 def test_planner_picks_the_largest_block_that_fits(k, r, threads, slots):
+    """The plan's schedule fits the widest tile (64 columns), with sixteen
+    warps where an SM holds fewer than four such blocks."""
     plan = fused_plan(_REF.bits_rows_for(_parity(k, r)), 8 * k)
     assert plan is not None
     assert (plan[0], plan[1].n_slots) == (threads, slots)
-    assert plan[1].n_slots * plan[0] * 4 <= SMEM_BYTES
+    assert plan[1].tiles[0] == 64 and fits(plan[1], 64)
+    assert plan[1].smem_bytes(64) <= SMEM_BYTES
 
 
 def test_planner_caps_temps_then_gives_up(monkeypatch):
-    """With less shared memory K1's planner first caps the temporaries
-    (accepting at most 1.25x the full XOR count), then returns no plan.
-    The codec tries K5 first: its planner halves the phase until the ring
-    fits (RS(17,3) under a budget K1 cannot meet); the codec takes K1 where
-    K5 has no plan, and routes a matrix that neither kernel holds to the
-    pipeline."""
+    """With less shared memory K1's planner first sums the output rows in
+    chains, then caps the temporaries (accepting at most 1.25x the full XOR
+    count), then returns no plan. The codec tries K5 first: its planner
+    halves the phase until the ring fits (RS(17,3) under a budget K1 cannot
+    meet); the codec takes K1 where K5 has no plan, and routes a matrix
+    that neither kernel holds to the pipeline."""
     import noise_ec_tpu_torch.ops.dispatch as dispatch
     import noise_ec_tpu_torch.ops.fused as fused
     import noise_ec_tpu_torch.ops.network as network
@@ -108,20 +118,24 @@ def test_planner_caps_temps_then_gives_up(monkeypatch):
         fused.fused_split_plan.cache_clear()
 
     try:
-        budget(200 * 32 * 4)  # 200 slots at one warp: fits only with a cap
+        # 9,000 bytes: the full factoring's 253 chained slots at an 8-column
+        # tile and its program do not fit; a capped network's do.
+        budget(9_000)
+        assert not fits(schedule_program(full, row_width=1), 8)
         threads, prog = fused.fused_plan(br, 80)
-        assert threads == 32 and prog.n_slots <= 200 < full.n_slots
+        assert threads == 1024 and prog.n_slots < 253 and fits(prog, 8)
+        assert prog.tiles == (8,)
         assert full.cost < prog.cost <= 1.25 * full.cost
-        # RS(17,3) in 23,040 bytes: K1's cap would cost more than 1.25x;
-        # K5's ring of 4-row phases needs 24,576 bytes at one column warp,
-        # one of 2-row phases 20,480 at two.
-        budget(180 * 32 * 4)
+        # RS(17,3) in 10,000 bytes: K1's cap would cost more than 1.25x;
+        # K5's ring of 2-row phases needs 12,288 bytes at one column warp,
+        # one of 1-row phases 6,144.
+        budget(10_000)
         M17 = _parity(17, 3)
         br17 = _REF.bits_rows_for(M17)
         assert fused.fused_plan(br17, 136) is None
         kind, threads, tiles, G = DeviceCodec(device="cpu").plan_for(M17)
         assert (kind, threads, tiles.KT, tiles.ring_bytes, G) == (
-            "split", 64, 16, 20_480, 1)
+            "split", 32, 8, 6_144, 1)
         # Below K5's smallest ring (one-row phases, one column warp: 6,144
         # bytes) and K1's capped slots, the pipeline.
         budget(6_000)
@@ -160,9 +174,17 @@ def test_fused_rejects_programs_it_cannot_run(rng):
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,r", [(4, 2), (10, 4), (17, 3)])
 def test_fused_kernel_matches_plain_on_cuda(rng, k, r):
+    """K1 at its plan and at every tile and block its schedule fits, on a
+    ragged last tile, against its plain version."""
     _require_cuda()
     threads, prog = fused_plan(_REF.bits_rows_for(_parity(k, r)), 8 * k)
     prog = prog.to("cuda")
-    words = torch.from_numpy(_words(rng, (k, 65536)).view(np.int32)).cuda()
-    got = fused_encode_words(prog, words, r, threads)
-    assert torch.equal(got, fused_encode_words_plain(prog, words, r, 128))
+    words = torch.from_numpy(_words(rng, (k, 65536 + 1024)).view(np.int32))
+    words = words.cuda()
+    want = fused_encode_words_plain(prog, words, r, 128)
+    assert torch.equal(fused_encode_words(prog, words, r, threads), want)
+    for tile in prog.tiles:
+        for t in BLOCKS:
+            got = fused_encode_words(prog, words, r, t, tile=tile)
+            assert torch.equal(got, want), (tile, t)
+    assert set(prog.tiles) <= set(TILES)

@@ -30,9 +30,13 @@ from noise_ec_tpu_torch.ops.gf2mm import (
     sparse_plan,
 )
 from noise_ec_tpu_torch.ops.network import (
+    BLOCKS,
+    TILES,
+    block_threads,
     compile_network,
     eval_program,
     fits,
+    schedule_program,
 )
 from noise_ec_tpu_torch.ops.xor_factor import (
     eval_bits_rows,
@@ -130,9 +134,11 @@ def test_program_matches_reference_sparse_kernel(rng, erasures):
         ops, _ = paar_factor_capped(br, C, max_temps)
         prog = compile_network(br, C, max_temps, inputs_in_slots=False)
         assert prog.n_slots <= len(ops)  # only temps take slots
-        threads = 256 if fits(prog, 256) else 32
-        got = gf2_matmul_sparse(prog, tplanes, threads)
-        np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+        for reload in (False, True):
+            sched = schedule_program(prog, reload)
+            assert fits(sched, TILES[-1])
+            got = gf2_matmul_sparse(sched, tplanes, block_threads(sched))
+            np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
         slotted = compile_network(br, C, max_temps)
         assert slotted.n_slots <= C + len(ops)
         assert slotted.n_slots >= int((slotted.in_slot >= 0).sum())
@@ -184,7 +190,8 @@ def test_sparse_plan_always_fits(monkeypatch):
     temp cap that fills it (here with a shrunken budget)."""
     br = _bits_rows(_matrix(10, 4))
     threads, prog = sparse_plan(br, 80)
-    assert (threads, prog.n_slots) == (256, 158) and fits(prog, threads)
+    assert (threads, prog.n_slots) == (512, 306) and fits(prog, 64)
+    assert not prog.reload and prog.tiles == TILES
     import noise_ec_tpu_torch.ops.gf2mm as gf2mm
     import noise_ec_tpu_torch.ops.network as network
 
@@ -193,7 +200,8 @@ def test_sparse_plan_always_fits(monkeypatch):
     gf2mm.sparse_plan.cache_clear()
     try:
         threads, prog = gf2mm.sparse_plan(br, 80)
-        assert threads == 32 and prog.n_slots <= 40
+        assert threads == 1024 and prog.reload and prog.tiles == (8,)
+        assert prog.n_slots * 8 * 4 + prog.ring_bytes + 16 <= 40 * 32 * 4
         assert prog.cost > 532  # the cap costs XORs
     finally:
         gf2mm.sparse_plan.cache_clear()
@@ -201,17 +209,31 @@ def test_sparse_plan_always_fits(monkeypatch):
 
 def test_sparse_rejects_a_slotted_program(rng):
     br = _bits_rows(_matrix(4, 2))
-    prog = compile_network(br, 32)
+    prog = schedule_program(compile_network(br, 32))
     with pytest.raises(ValueError, match="inputs stay in memory"):
         gf2_matmul_sparse(prog, torch.zeros((32, 8, 128), dtype=torch.int32), 256)
 
 
 @pytest.mark.cuda
-def test_sparse_kernel_matches_plain_on_cuda(rng):
+@pytest.mark.parametrize("reload", [False, True])
+def test_sparse_kernel_matches_plain_on_cuda(rng, reload):
+    """K4 at its plan and at every tile and block its schedule fits, with
+    its inputs loaded once and before every use, on a ragged last tile
+    (33,000 plane words) and a batch of two, against its plain version."""
     _require_cuda()
     br = _bits_rows(_matrix(10, 4))
     threads, prog = sparse_plan(br, 80)
+    if reload:
+        prog = schedule_program(compile_network(br, 80, inputs_in_slots=False),
+                                reload=True)
     prog = prog.to("cuda")
-    planes = torch.from_numpy(_planes(rng, 80, W8=4096).view(np.int32)).cuda()
-    got = gf2_matmul_sparse(prog, planes, threads)
-    assert torch.equal(got, gf2_matmul_sparse_plain(prog, planes))
+    planes = torch.from_numpy(_planes(rng, 80, W8=4125).view(np.int32)).cuda()
+    want = gf2_matmul_sparse_plain(prog, planes)
+    assert torch.equal(gf2_matmul_sparse(prog, planes, threads), want)
+    for tile in prog.tiles:
+        for t in BLOCKS:
+            got = gf2_matmul_sparse(prog, planes, t, tile=tile)
+            assert torch.equal(got, want), (tile, t)
+    batch = torch.stack([planes, planes.flip(0)])
+    assert torch.equal(gf2_matmul_sparse(prog, batch, threads),
+                       gf2_matmul_sparse_plain(prog, batch))
