@@ -40,8 +40,10 @@ before printing any result. Phases (one JSON line each):
    dense_kernels — the sublane pack and unpack K9 at RS(10,4)'s 1 MiB
    shards and at TW = 3,072 (TL = 384), and the dense-mask products K11
    and K12 on RS(10,4)'s (32, 80) select masks, random-word masks of that
-   shape and RS(50,20)'s (160, 400) masks, each against its plain version
-   and K12 also against K11 and the sparse K4;
+   shape and RS(50,20)'s (160, 400) masks, at W = 32,767 and 1,001, on
+   planes 4 bytes off a 16-byte boundary, with sliced masks, at R = 20 and
+   at a width that takes the K split, each against its plain version and
+   K12 also against K11 and the sparse K4;
    words16_kernels — the m = 16 forms (16 bit-planes a GF(2^16) symbol on
    the interleaved words entry): K5@16 at its plan and with its phases
    split over three blocks on GF(2^16) RS(10,4), RS(17,3) and RS(30,10)'s
@@ -124,7 +126,8 @@ before printing any result. Phases (one JSON line each):
    before the m = 16 forms); GF(2^16) stream encode and decode GB/s with
    the device's share;
    dense_times — K9, K11 and K12 beside their bounds and plain versions
-   at RS(10,4)'s shapes, and K11 on RS(50,20)'s masks;
+   at RS(10,4)'s shapes, and K11 on RS(50,20)'s masks, with K11's block
+   shape and K split;
    fec_times — the FEC decode p50 per case and route on the host clock,
    beside the CUDA-event time of the device route's product.
 
@@ -136,7 +139,10 @@ tile shapes than the planner's, on the three panel matrices that
 ``panel_times`` times, and K5's on RS(50,20); ``--mxu-sweep`` K8's at
 every wgmma width it is built for on RS(200,56)'s GF(2^16) parity and the
 dense GF(2^8) matrix, and the timing probes of ``csrc/mxu_probe.cu`` (K8
-with parts of its work taken away, and the bare wgmma rate). ``--out
+with parts of its work taken away, and the bare wgmma rate);
+``--dense-sweep`` K11's under other launch shapes than ``dense_shape``'s
+and the probes of ``csrc/dense_probe.cu`` (K11 with its product or its
+copies left out), by CUDA events and torch.profiler's device time. ``--out
 FILE`` also writes every JSON line to FILE.
 """
 
@@ -1112,13 +1118,30 @@ def dense_bound(R: int, C: int, W: int) -> tuple[float, str]:
     return bound((R * C + C * W + R * W) * 4, R * C * W)
 
 
+def dense_plan(masks: torch.Tensor, planes: torch.Tensor) -> dict:
+    """K11's launch for these operands: the planner's (KT, WR, WC, WK,
+    ksplit) and the words a plane copy moves."""
+    from noise_ec_tpu_torch.ops.gf2mm import dense_copy_words
+    from noise_ec_tpu_torch.ops.gf2tile import dense_shape
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    KT, WR, WC, WK, ksplit = dense_shape(*masks.shape, planes.shape[1], sms)
+    return {"KT": KT, "WR": WR, "WC": WC, "WK": WK, "ksplit": ksplit,
+            "copy_words": dense_copy_words(planes)}
+
+
 def phase_dense_kernels(rng, device, results: dict) -> dict:
     """K9, K11 and K12 against their plain versions on the card, byte for
     byte: K9 pack and unpack at RS(10,4)'s 1 MiB shards (10 rows, TW =
     262,144) and at TW = 3,072 (TL = 384), with their round trips; K11 and
     K12 on RS(10,4)'s (32, 80) select masks, on random words of that
-    shape and on RS(50,20)'s (160, 400) masks, over 32,768-word planes,
-    each against the other; K12 also against the sparse K4 on RS(10,4)."""
+    shape and on RS(50,20)'s (160, 400) masks over 32,768-word planes, and
+    on random (32, 80) words at W = 32,767 and 1,001 (4-byte plane
+    copies), on planes starting 4 bytes off a 16-byte boundary, with masks
+    sliced from a wider matrix, at R = 20 and at W = 2,048 (the planner's
+    K split), each with K12 (on the zero-padded tiled view where 8 does not
+    divide W) equal to K11; K12 also against the sparse K4 on RS(10,4).
+    Each case names K11's launch (:func:`dense_plan`)."""
     from noise_ec_tpu_torch.gf import GF256
     from noise_ec_tpu_torch.ops.gf2mm import (
         bits_to_rows,
@@ -1127,7 +1150,9 @@ def phase_dense_kernels(rng, device, results: dict) -> dict:
         gf2_matmul_dense_tiled,
         gf2_matmul_dense_tiled_plain,
         gf2_matmul_sparse,
+        planes_to_tiled,
         sparse_plan,
+        tiled_to_planes,
     )
     from noise_ec_tpu_torch.ops.pack import (
         pack_words_sublane,
@@ -1154,18 +1179,33 @@ def phase_dense_kernels(rng, device, results: dict) -> dict:
 
     gf = GF256()
     M10, masks10 = dense_masks(gf, 10, 4)
+    m10 = torch.from_numpy(masks10).to(device)
+    rand = rand_words(rng, (32, 80), device)
+    wide = rand_words(rng, (40, 96), device)
+    off = rand_words(rng, (80, W_PLANE + 4), device)
     cases = {
-        "RS(10,4) select masks (32,80)": masks10,
-        "random-word masks (32,80)": rng.integers(
-            0, 1 << 32, size=(32, 80), dtype=np.uint64).astype(
-                np.uint32).view(np.int32),
-        "RS(50,20) select masks (160,400)": dense_masks(gf, 50, 20)[1],
+        "RS(10,4) select masks (32,80)": (
+            m10, rand_words(rng, (80, W_PLANE), device)),
+        "random-word masks (32,80)": (
+            rand, rand_words(rng, (80, W_PLANE), device)),
+        "RS(50,20) select masks (160,400)": (
+            torch.from_numpy(dense_masks(gf, 50, 20)[1]).to(device),
+            rand_words(rng, (400, W_PLANE), device)),
+        "W = 32,767": (rand, rand_words(rng, (80, W_PLANE - 1), device)),
+        "W = 1,001": (rand, rand_words(rng, (80, 1001), device)),
+        "planes 4 bytes off 16": (m10, off[:, 1:W_PLANE + 1]),
+        "masks sliced (32,80) of (40,96)": (
+            wide[3:35, 7:87], rand_words(rng, (80, W_PLANE), device)),
+        "R = 20": (rand_words(rng, (20, 80), device),
+                   rand_words(rng, (80, W_PLANE), device)),
+        "K split, W = 2,048": (rand, rand_words(rng, (80, 2048), device)),
     }
-    for name, masks in cases.items():
-        m = torch.from_numpy(masks).to(device)
-        C = masks.shape[1]
-        planes = rand_words(rng, (C, W_PLANE), device)
-        tiled = planes.reshape(C, 8, W_PLANE // 8)
+    for name, (m, planes) in cases.items():
+        (R, C), W = m.shape, planes.shape[1]
+        if W % 8:
+            tiled = planes_to_tiled(planes)
+        else:
+            tiled = planes.reshape(C, 8, W // 8)
         out = gf2_matmul_dense(m, planes)
         e11 = max_abs_err(out, gf2_matmul_dense_plain(m, planes))
         out_t = gf2_matmul_dense_tiled(m, tiled)
@@ -1173,12 +1213,12 @@ def phase_dense_kernels(rng, device, results: dict) -> dict:
         torch.cuda.synchronize()
         check(e11 == 0, f"K11 {name} vs plain")
         check(e12 == 0, f"K12 {name} vs plain")
-        check(torch.equal(out_t.reshape(out.shape), out),
+        check(torch.equal(tiled_to_planes(out_t, W), out),
               f"K12 vs K11 {name}")
-        entry = {"masks": list(masks.shape), "planes": list(planes.shape),
-                 "equal": True}
-        if masks is masks10:
-            threads, prog = sparse_plan(bits_to_rows(masks != 0), C)
+        entry = {"masks": [R, C], "W": W, "equal": True,
+                 "k11": dense_plan(m, planes)}
+        if m is m10 and W == W_PLANE and planes.is_contiguous():
+            threads, prog = sparse_plan(bits_to_rows(masks10 != 0), C)
             sparse = gf2_matmul_sparse(prog.to(device), tiled, threads)
             check(torch.equal(sparse, out_t), f"K12 vs K4 {name}")
             entry["equal_to_k4"] = True
@@ -1187,6 +1227,10 @@ def phase_dense_kernels(rng, device, results: dict) -> dict:
             results["gf2mm_dense"]["max_abs_err"], e11)
         results["gf2mm_dense_tiled"]["max_abs_err"] = max(
             results["gf2mm_dense_tiled"]["max_abs_err"], e12)
+    check(report["planes 4 bytes off 16"]["k11"]["copy_words"] == 1
+          and report["W = 1,001"]["k11"]["copy_words"] == 1
+          and report["K split, W = 2,048"]["k11"]["ksplit"] > 1,
+          "the dense cases reach the 4-byte copies and the K split")
     return report
 
 
@@ -2691,7 +2735,8 @@ def phase_dense_times(rng, device, results: dict) -> dict:
     """K9 at RS(10,4), 1 MiB shards (pack 10 rows, unpack the 4 parity
     rows), and K11 and K12 on RS(10,4)'s (32, 80) masks over 32,768-word
     planes, each beside its bound and its plain version; K11 also on
-    RS(50,20)'s (160, 400) masks, the wide runtime-matrix use."""
+    RS(50,20)'s (160, 400) masks, the wide runtime-matrix use. K11's and
+    K12's rows name their launch (:func:`dense_plan`)."""
     from noise_ec_tpu_torch.gf import GF256
     from noise_ec_tpu_torch.ops.gf2mm import (
         gf2_matmul_dense,
@@ -2738,13 +2783,16 @@ def phase_dense_times(rng, device, results: dict) -> dict:
             ms=timer.median_ms(kernel), plain_ms=timer.median_ms(plain),
             bound_ms=b_ms, bound_by=b_by,
         )
+    for name in ("gf2mm_dense", "gf2mm_dense_tiled"):
+        results[name]["launch"] = dense_plan(m, flat)
     m50 = torch.from_numpy(dense_masks(gf, 50, 20)[1]).to(device)
     planes50 = rand_words(rng, (400, W_PLANE), device)
     b_ms, b_by = dense_bound(160, 400, W_PLANE)
     wide = {"ms": timer.median_ms(lambda: gf2_matmul_dense(m50, planes50)),
             "plain_ms": timer.median_ms(
                 lambda: gf2_matmul_dense_plain(m50, planes50)),
-            "bound_ms": b_ms, "bound_by": b_by}
+            "bound_ms": b_ms, "bound_by": b_by,
+            "launch": dense_plan(m50, planes50)}
     return {"phase": "dense_times", "reps": REPS,
             "gf2mm_dense_rs_50_20_masks": wide}
 
@@ -2887,6 +2935,127 @@ def phase_panel_sweep(rng, device) -> dict:
     return {"phase": "panel_sweep", "rows": rows}
 
 
+def device_us(fn, flush: torch.Tensor, name: str, reps: int = 10) -> float:
+    """Device time a call of the kernels whose name holds ``name``, from a
+    torch.profiler trace of ``reps`` calls each after an L2 flush
+    (microseconds). Taken after the event timings: the profiler's teardown
+    slows the host for a while."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total", None)
+        if t is None:
+            t = getattr(ev, "cuda_time_total", 0)
+        if name in ev.key:
+            total += t
+    return total / reps
+
+
+def phase_dense_sweep(rng, device) -> dict:
+    """K11 under other launch shapes than the planner's (K tile KT, column
+    warps WC, warps along K WK, K split) on RS(10,4)'s (32, 80) and
+    RS(50,20)'s (160, 400) select masks over 32,768-word planes and on the
+    (32, 80) masks over 262,144-word planes: the evidence for
+    ``dense_shape``'s constants, each shape held equal to the plain
+    version. Then the probes of ``csrc/dense_probe.cu`` at the planner's
+    shape on the first two: K11 whole, without its product (the copies
+    alone), without its copies (the product on stale words), with only the
+    plane copies, and without the plane copies, by CUDA events and by
+    torch.profiler's device time."""
+    from noise_ec_tpu_torch.gf import GF256
+    from noise_ec_tpu_torch.ops import _build
+    from noise_ec_tpu_torch.ops.gf2mm import (
+        _dense,
+        dense_copy_words,
+        gf2_matmul_dense_plain,
+    )
+    from noise_ec_tpu_torch.ops.gf2tile import (
+        DENSE_KT,
+        MAX_WARPS,
+        dense_shape,
+        dense_smem_bytes,
+        row_groups,
+    )
+    from noise_ec_tpu_torch.ops.network import SMEM_BYTES
+
+    timer = Timer(device)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    gf = GF256()
+    m10 = torch.from_numpy(dense_masks(gf, 10, 4)[1]).to(device)
+    m50 = torch.from_numpy(dense_masks(gf, 50, 20)[1]).to(device)
+    cases = {"(32,80) x 32768": (m10, W_PLANE, DENSE_KT, (1, 2)),
+             "(160,400) x 32768": (m50, W_PLANE, DENSE_KT, (1, 2)),
+             "(32,80) x 262144": (m10, 8 * W_PLANE, (16, 32), (1,))}
+    rows, operands = [], {}
+    for name, (m, W, kts, splits) in cases.items():
+        R, C = m.shape
+        planes = rand_words(rng, (C, W), device)
+        want = gf2_matmul_dense_plain(m, planes)
+        operands[name] = (m, planes)
+        WR = row_groups(R)[1]
+        for KT, WC, WK, ks in itertools.product(kts, (1, 2, 3, 4), (1, 2, 4),
+                                                splits):
+            if (WR * WC * WK > MAX_WARPS
+                    or dense_smem_bytes(KT, WR, WC, WK) > SMEM_BYTES):
+                continue
+            shape = (KT, WR, WC, WK, ks)
+            check(torch.equal(_dense(m, planes, "gf2mm_dense", shape), want),
+                  f"dense sweep {name} {shape}")
+            rows.append({"masks": name, "KT": KT, "WC": WC, "WK": WK,
+                         "ksplit": ks, "ms": timer.median_ms(
+                             lambda: _dense(m, planes, "gf2mm_dense", shape),
+                             5)})
+        rows.append({"masks": name, "planned": dense_shape(R, C, W, sms)})
+    lib = _build.probe_library()
+    drops = {"whole": 0, "copies, no product": 1,
+             "product, no copies": 2 | 4, "plane copies only": 1 | 4,
+             "masks and product, no plane copies": 2}
+
+    def prober(m, planes, shape, drop):
+        (R, C), W = m.shape, planes.shape[1]
+
+        def probe():
+            alloc = torch.zeros if shape[-1] > 1 else torch.empty
+            out = alloc((R, W), dtype=torch.int32, device=device)
+            _build.launch("ec_dense_probe", planes, _build.ptr(m),
+                          _build.ptr(planes), _build.ptr(out), R, C, W,
+                          m.stride(0), planes.stride(0), *shape,
+                          dense_copy_words(planes), drop, lib=lib)
+            return out
+        return probe
+
+    probes = []
+    for name in list(cases)[:2]:
+        m, planes = operands[name]
+        shape = dense_shape(*m.shape, planes.shape[1], sms)
+        check(torch.equal(prober(m, planes, shape, 0)(),
+                          _dense(m, planes, "gf2mm_dense")),
+              f"dense probe {name} whole vs K11")
+        for what, drop in drops.items():
+            fn = prober(m, planes, shape, drop)
+            # Without its product a probe stores zeros: the drop took.
+            check(not drop & 1 or not fn().any(),
+                  f"dense probe {name} {what} leaves the product out")
+            probes.append({"masks": name, "shape": list(shape),
+                           "probe": what, "fn": fn,
+                           "ms": timer.median_ms(fn)})
+    for row in probes:
+        row["device_us"] = device_us(row.pop("fn"), timer.flush,
+                                     "masked_kernel")
+    return {"phase": "dense_sweep", "rows": rows, "probes": probes,
+            "bound_ms": {name: dense_bound(*operands[name][0].shape,
+                                           operands[name][1].shape[1])[0]
+                         for name in cases}}
+
+
 def phase_mxu_sweep(rng, device) -> dict:
     """K8 at every width of ``ops/mxu.py`` N_MENU on RS(200,56)'s GF(2^16)
     parity and the dense (200, 200) GF(2^8) matrix at 1 MiB shards (the
@@ -2971,6 +3140,9 @@ def main() -> int:
                         help="also time K7 and K5 under other tile shapes")
     parser.add_argument("--mxu-sweep", action="store_true",
                         help="also time K8 at every width and its probes")
+    parser.add_argument("--dense-sweep", action="store_true",
+                        help="also time K11 under other launch shapes and "
+                        "its probes")
     parser.add_argument("--out", help="also write every JSON line here")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -3025,9 +3197,9 @@ def main() -> int:
                          "noise_ec_tpu/ops/pallas_pack.py:76"),
         "unpack_sublane": ("noise_ec_tpu_torch/csrc/pack.cu",
                            "noise_ec_tpu/ops/pallas_pack.py:81"),
-        "gf2mm_dense": ("noise_ec_tpu_torch/csrc/gf2mm.cu",
+        "gf2mm_dense": ("noise_ec_tpu_torch/csrc/dense.cu",
                         "noise_ec_tpu/ops/pallas_gf2mm.py:67"),
-        "gf2mm_dense_tiled": ("noise_ec_tpu_torch/csrc/gf2mm.cu",
+        "gf2mm_dense_tiled": ("noise_ec_tpu_torch/csrc/dense.cu",
                               "noise_ec_tpu/ops/pallas_gf2mm.py:192"),
     }
     results = {
@@ -3068,6 +3240,8 @@ def main() -> int:
         timed(phase_panel_sweep, rng, device)
     if args.mxu_sweep:
         timed(phase_mxu_sweep, rng, device)
+    if args.dense_sweep:
+        timed(phase_dense_sweep, rng, device)
     kernels = []
     for name, res in results.items():
         res["launches"] = main_path["launches"][name]

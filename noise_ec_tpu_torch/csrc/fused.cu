@@ -191,8 +191,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   const uint32_t* msrc = masks + (long long)rg * NT * s.mask_words();
   const int chunks = s.ncol / 4;
 
-  auto load = [&](int t, int stage) {
-    uint32_t* st = smem + stage * s.stage_words();
+  auto load = [&](int t, uint32_t* st) {
     // Four neighbouring groups lie in one TL run, so their word i is one
     // 16-byte chunk. Rows past k (a short last phase) have zero masks.
     for (int e = threadIdx.x; e < s.KT * chunks; e += blockDim.x) {
@@ -210,35 +209,25 @@ __global__ void __launch_bounds__(kMaxThreads)
                 msrc + (long long)t * s.mask_words(), s.mask_words());
   };
 
-  uint32_t acc[kCols][kRowBlock];
-#pragma unroll
-  for (int i = 0; i < kCols; ++i) {
-#pragma unroll
-    for (int q = 0; q < kRowBlock; ++q) acc[i][q] = 0;
-  }
-  uint32_t w[N];
-  if (t0 < t1) load(t0, 0);
-  cp_async_commit();
-  for (int t = t0; t < t1; ++t) {
-    const int stage = (t - t0) % kStages;
-    cp_async_wait_all();
-    __syncthreads();  // phase t landed; phase t-1's stage is free
-    if (t + 1 < t1) load(t + 1, (stage + 1) % kStages);
-    cp_async_commit();
-    uint32_t* st = smem + stage * s.stage_words();
+  // Once a phase has landed, each N-word group becomes N bit-planes.
+  auto transpose = [&](uint32_t* st) {
+    uint32_t v[N];
     for (int e = threadIdx.x; e < ksl * s.ncol; e += blockDim.x) {
       const int j = e / s.ncol;
       uint32_t* grp = st + N * j * s.ncol + (e - j * s.ncol);
 #pragma unroll
-      for (int i = 0; i < N; ++i) w[i] = grp[i * s.ncol];
-      transpose_group<N>(w);
+      for (int i = 0; i < N; ++i) v[i] = grp[i * s.ncol];
+      transpose_group<N>(v);
 #pragma unroll
-      for (int i = 0; i < N; ++i) grp[i * s.ncol] = w[i];
+      for (int i = 0; i < N; ++i) grp[i * s.ncol] = v[i];
     }
     __syncthreads();
-    product(acc, st, st + s.tile_words(), s, wc * 32 * kCols + lane,
-            wr * kRowBlock);
-  }
+  };
+
+  uint32_t acc[kCols][kRowBlock];
+  ring<kStages>(acc, smem, s, t0, t1, wc * 32 * kCols + lane,
+                wr * kRowBlock, load, transpose, 0, s.KT);
+  uint32_t w[N];
   // The output symbol row of the warp's first N accumulators.
   const int row0 = (rg * s.rgr + wr * kRowBlock) / N;
 #pragma unroll
@@ -268,8 +257,8 @@ template <int N>
 int launch_split(const void* in, void* out, const void* masks, int batch,
                  int k, int r, long long TW, int tl_shift, int ksl, int NT,
                  int NRG, int WR, int WC, int ksplit, void* stream) {
-  const Shape s{N * ksl, WR, WC, 32 * kCols * WC, kRowBlock * WR};
-  const size_t smem = (size_t)kStages * s.stage_words() * sizeof(uint32_t);
+  const Shape s = Shape::make(N * ksl, WR, WC, 1, 0);
+  const size_t smem = s.smem_bytes(kStages);
   cudaError_t err = noise_ec::allow_smem(split_kernel<N>, smem);
   if (err != cudaSuccess) return (int)err;
   const long long cols = (TW / N + s.ncol - 1) / s.ncol;

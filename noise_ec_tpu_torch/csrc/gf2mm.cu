@@ -16,73 +16,9 @@
 // temporaries the schedule loads a plane again before each level that reads
 // it. After the last level the block's threads store the output rows' slots
 // to device memory, neighbouring threads on neighbouring words.
-//
-// K11/K12: the dense-mask GF(2) product with the mask matrix as an operand,
-// out[r, w] = XOR over c of (masks[r, c] & planes[c, w]), (R, C) masks x
-// (C, W) planes -> (R, W), all 32-bit words. Replaces
-// noise_ec_tpu/ops/pallas_gf2mm.py _kernel (gf2_matmul_pallas) and
-// _tiled_dense_kernel (gf2_matmul_pallas_tiled): the tiled product is
-// positionwise over (sublane, lane), so it is this kernel on the contiguous
-// (C, 8 * W8) view. Masks are arbitrary words, not only select masks: the
-// AND takes whatever they hold. Bound on the H100: operations (one LOP3,
-// acc ^= m & p, per mask word and plane word: RS(10,4)'s 32 x 80 masks do
-// 2560 a plane column against 448 bytes moved). Design: the grid tiles W and R; a block
-// stages a chunk of mask columns for its 32 rows in shared memory, [c][r],
-// so every thread reads the same words (broadcasts, four at a time); each
-// thread owns one word column and keeps its 32 row accumulators in
-// registers, reading each plane word of the chunk once, coalesced.
 #include "xornet.cuh"
 
 namespace {
-
-constexpr int kDenseRows = 32;    // row accumulators a thread holds
-constexpr int kDenseChunk = 64;   // mask columns a block stages at a time
-constexpr int kDenseThreads = 256;
-
-__global__ void gf2mm_dense_kernel(const uint32_t* __restrict__ masks,
-                                   const uint32_t* __restrict__ planes,
-                                   uint32_t* __restrict__ out, int R, int C,
-                                   long long W) {
-  __shared__ uint4 smask[kDenseChunk][kDenseRows / 4];
-  uint32_t* flat = reinterpret_cast<uint32_t*>(smask);
-  const long long w = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const int r0 = blockIdx.y * kDenseRows;
-  const int nr = min(kDenseRows, R - r0);
-  uint32_t acc[kDenseRows];
-#pragma unroll
-  for (int r = 0; r < kDenseRows; ++r) acc[r] = 0;
-  for (int c0 = 0; c0 < C; c0 += kDenseChunk) {
-    const int nc = min(kDenseChunk, C - c0);
-    __syncthreads();  // the previous chunk's reads are done
-    for (int e = threadIdx.x; e < kDenseChunk * kDenseRows; e += blockDim.x) {
-      const int c = e / kDenseRows;
-      const int r = e - c * kDenseRows;
-      flat[e] = (c < nc && r < nr)
-                    ? __ldg(masks + (long long)(r0 + r) * C + c0 + c)
-                    : 0u;
-    }
-    __syncthreads();
-    if (w < W) {
-      const uint32_t* col = planes + (long long)c0 * W + w;
-      for (int c = 0; c < nc; ++c) {
-        const uint32_t p = __ldg(col + (long long)c * W);
-#pragma unroll
-        for (int q = 0; q < kDenseRows / 4; ++q) {
-          const uint4 m = smask[c][q];
-          acc[4 * q] ^= m.x & p;
-          acc[4 * q + 1] ^= m.y & p;
-          acc[4 * q + 2] ^= m.z & p;
-          acc[4 * q + 3] ^= m.w & p;
-        }
-      }
-    }
-  }
-  if (w >= W) return;
-#pragma unroll
-  for (int r = 0; r < kDenseRows; ++r) {
-    if (r < nr) out[(long long)(r0 + r) * W + w] = acc[r];
-  }
-}
 
 template <int TILE>
 __global__ void __launch_bounds__(noise_ec::xornet::kMaxThreads)
@@ -137,15 +73,4 @@ extern "C" int ec_gf2mm(const void* in, void* out, int batch, long long P,
         (const int*)out_slot);
     return (int)cudaGetLastError();
   });
-}
-
-extern "C" int ec_gf2mm_dense(const void* masks, const void* planes, void* out,
-                              int R, int C, long long W, void* stream) {
-  if (R == 0 || W == 0) return cudaSuccess;
-  const dim3 grid((unsigned)((W + kDenseThreads - 1) / kDenseThreads),
-                  (unsigned)((R + kDenseRows - 1) / kDenseRows));
-  gf2mm_dense_kernel<<<grid, kDenseThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)masks, (const uint32_t*)planes, (uint32_t*)out, R, C,
-      W);
-  return (int)cudaGetLastError();
 }

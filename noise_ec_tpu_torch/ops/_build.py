@@ -8,8 +8,9 @@ edited source is rebuilt. Each source compiles in its own ``nvcc``, all at
 once, and one more links them. What ``ptxas`` printed for each source is
 kept beside the library (``.ptxas.json``) and read back on a cached build,
 so :data:`build_log` is filled either way. Without ``nvcc`` this raises:
-there is no other route to the kernels. :func:`probe_library` builds K8's
-timing probes (``csrc/mxu_probe.cu``) the same way, as a library of their
+there is no other route to the kernels. :func:`probe_library` builds the
+timing probes of K8 and K11 (``csrc/mxu_probe.cu``,
+``csrc/dense_probe.cu``) the same way, as a library of their
 own.
 
 Every C entry returns ``cudaGetLastError()`` after its launch; :func:`launch`
@@ -34,8 +35,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("pack", "gf2mm", "fused", "panel", "mxu")
-PROBE_SOURCES = ("mxu_probe",)
+SOURCES = ("pack", "gf2mm", "fused", "panel", "dense", "mxu")
+PROBE_SOURCES = ("mxu_probe", "dense_probe")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -53,7 +54,8 @@ _SIGNATURES = {
     "ec_unpack_groups16": [_p, _p, _ll, _ll, _ll, _p],
     "ec_gf2mm": [_p, _p, _i, _ll, _i, _i, _p, _p, _p, _i, _i, _i, _p, _i, _i,
                  _p],
-    "ec_gf2mm_dense": [_p, _p, _p, _i, _i, _ll, _p],
+    "ec_gf2mm_dense": [_p, _p, _p, _i, _i, _ll, _ll, _ll, _i, _i, _i, _i, _i,
+                       _i, _p],
     "ec_fused": [_p, _p, _i, _i, _i, _ll, _i, _i, _p, _p, _p, _p, _i, _i,
                  _i, _p, _i, _i, _p],
     "ec_fused_split": [_p, _p, _p, _i, _i, _i, _ll, _i, _i, _i, _i, _i, _i,
@@ -65,6 +67,8 @@ _SIGNATURES = {
 _PROBE_SIGNATURES = {
     "ec_mxu_probe": [_p, _p, _p, _i, _i, _i, _ll, _i, _i, _i, _i, _i, _p],
     "ec_wgmma_peak": [_i, _i, _i, _p, _p],
+    "ec_dense_probe": [_p, _p, _p, _i, _i, _ll, _ll, _ll, _i, _i, _i, _i, _i,
+                       _i, _i, _p],
 }
 
 _lock = threading.Lock()
@@ -161,11 +165,12 @@ def library() -> ctypes.CDLL:
 
 
 def probe_library() -> ctypes.CDLL:
-    """The loaded library of K8's timing probes (built on first use)."""
+    """The loaded library of K8's and K11's timing probes (built on first
+    use)."""
     global _probe_lib
     with _lock:
         if _probe_lib is None:
-            _probe_lib = _load(build(PROBE_SOURCES, "libnoise_ec_mxu_probe"),
+            _probe_lib = _load(build(PROBE_SOURCES, "libnoise_ec_probes"),
                                _PROBE_SIGNATURES)
         return _probe_lib
 

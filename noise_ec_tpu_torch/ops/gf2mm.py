@@ -24,11 +24,15 @@ mask matrix as an operand, ``out[r, w] = XOR over c of (masks[r, c] &
 planes[c, w])``, for callers whose matrix changes on every call, so no
 network is planned. Masks are int32 words (the reference's uint32
 0xFFFFFFFF select mask is -1; :func:`~noise_ec_tpu_torch.gf.bitmatrix.
-expand_generator_masks`), and any word is ANDed as it is. The tiled product
-is positionwise over its (8, W8) positions, so both entries run one CUDA
-kernel, the tiled one on the contiguous (C, 8 * W8) view, each with its own
-launch count. The port takes any W and writes exactly W columns, where the
-reference pads to its tile and slices back.
+expand_generator_masks`), and any word is ANDed as it is. Both run on the
+GF(2) product core that K5 and K7 run (``csrc/dense.cu`` on
+``csrc/gf2tile.cuh``), which stages the caller's (R, C) masks itself, so a
+call relays nothing out; the block shape and K split come from
+:func:`~noise_ec_tpu_torch.ops.gf2tile.dense_shape`. The tiled product is
+positionwise over its (8, W8) positions, so K12 is K11 on the contiguous
+(C, 8 * W8) view, with its own launch count. The port takes any W, plane
+offset and mask stride, and writes exactly W columns, where the reference
+pads to its tile and slices back.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ import numpy as np
 import torch
 
 from noise_ec_tpu_torch.ops import _build
+from noise_ec_tpu_torch.ops.gf2tile import dense_shape
 from noise_ec_tpu_torch.ops.network import (
     SMEM_BYTES,
     TILES,
@@ -170,9 +175,20 @@ def gf2_matmul_dense_tiled_plain(masks: torch.Tensor,
     return out.reshape((masks.shape[0],) + tuple(tiled.shape[1:]))
 
 
-def _dense(masks: torch.Tensor, planes: torch.Tensor,
-           counter: str) -> torch.Tensor:
-    """The dense-mask product of K11 and K12 on (C, W) ``planes``."""
+def dense_copy_words(planes: torch.Tensor) -> int:
+    """Words a K11 plane copy moves: 4 (16 bytes) where every plane row
+    starts 16-byte aligned and holds whole 16-byte chunks, else 1."""
+    W, ld = planes.shape[1], planes.stride(0)
+    aligned = planes.data_ptr() % 16 == 0
+    return 4 if W % 4 == 0 and ld % 4 == 0 and aligned else 1
+
+
+def _dense(masks: torch.Tensor, planes: torch.Tensor, counter: str,
+           shape: Optional[tuple[int, int, int, int, int]] = None
+           ) -> torch.Tensor:
+    """The dense-mask product of K11 and K12 on (C, W) ``planes``, at the
+    (KT, WR, WC, WK, ksplit) ``shape`` (default
+    :func:`~noise_ec_tpu_torch.ops.gf2tile.dense_shape`'s)."""
     if (masks.dtype != torch.int32 or planes.dtype != torch.int32
             or masks.dim() != 2 or planes.dim() != 2
             or masks.shape[1] != planes.shape[0]):
@@ -188,11 +204,25 @@ def _dense(masks: torch.Tensor, planes: torch.Tensor,
         return gf2_matmul_dense_plain(masks, planes)
     if planes.device.type != "cuda":
         raise ValueError(f"no kernel for device {planes.device}")
-    masks, planes = masks.contiguous(), planes.contiguous()
+    # The kernel reads rows at any stride; only a strided row is copied.
+    if masks.stride(1) != 1:
+        masks = masks.contiguous()
+    if planes.stride(1) != 1:
+        planes = planes.contiguous()
     (R, C), W = masks.shape, planes.shape[1]
-    out = torch.empty((R, W), dtype=torch.int32, device=planes.device)
+    if R == 0 or W == 0 or C == 0:
+        return torch.zeros((R, W), dtype=torch.int32, device=planes.device)
+    if shape is None:
+        sms = torch.cuda.get_device_properties(
+            planes.device).multi_processor_count
+        shape = dense_shape(R, C, W, sms)
+    KT, WR, WC, WK, ksplit = shape
+    alloc = torch.zeros if ksplit > 1 else torch.empty
+    out = alloc((R, W), dtype=torch.int32, device=planes.device)
     _build.launch("ec_gf2mm_dense", planes, _build.ptr(masks),
-                  _build.ptr(planes), _build.ptr(out), R, C, W)
+                  _build.ptr(planes), _build.ptr(out), R, C, W,
+                  masks.stride(0), planes.stride(0), KT, WR, WC, WK, ksplit,
+                  dense_copy_words(planes))
     LAUNCHES[counter] += 1
     return out
 

@@ -1,6 +1,8 @@
 """The operand of the GF(2) product core (``csrc/gf2tile.cuh``) that K5
-(ops/fused.py) and K7 (ops/panel.py) run, its shared-memory fit, and the
-plain masked product both kernels' plain versions compute.
+(ops/fused.py) and K7 (ops/panel.py) run, its shared-memory fit, the block
+shape of K11/K12 (ops/gf2mm.py, the third user, whose masks the kernel
+stages itself), and the plain masked product K5's and K7's plain versions
+compute.
 
 The operand is the matrix's bit expansion as int32 select masks (-1 where
 bit (row, plane) is set, else 0), built on the CPU once per matrix and
@@ -18,23 +20,47 @@ test on either.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
 import torch
 
-# csrc/gf2tile.cuh: kRowBlock, kStages, kMaxThreads / 32, kCols.
+from noise_ec_tpu_torch.ops.network import SMEM_BYTES
+
+# csrc/gf2tile.cuh: kRowBlock, kStages, kMaxThreads / 32, kCols, kMaskPad.
 ROW_BLOCK = 32
 STAGES = 2
 MAX_WARPS = 16
 COLS = 2
+MASK_PAD = 4
+
+# K11/K12 (csrc/gf2tile.cuh RowMajorMasks): its ring's depth; its K tiles
+# (multiples of 8: a warp stages masks 8 planes at a time); most column
+# warps a block; a K tile's fixed cost in planes' products (its barrier and
+# ring turn), which ranks the K tiles; the warps an SM under which a block
+# takes two warps along K (chip_smoke.py --dense-sweep, PERF.md).
+DENSE_STAGES = 3
+DENSE_KT = (32, 24, 16, 8)
+DENSE_WC = 4
+DENSE_TILE_COST = 4
+DENSE_MIN_WARPS = 8
 
 
-def ring_bytes(KT: int, ncol: int, rgr: int) -> int:
-    """Shared memory of one block: STAGES K tiles, each KT planes of ncol
-    words and KT planes' masks, one a row of the rgr-row group."""
-    return STAGES * KT * (ncol + rgr) * 4
+def ring_bytes(KT: int, ncol: int, rgr: int, stages: int = STAGES) -> int:
+    """Shared memory of one block's ring: ``stages`` K tiles, each KT
+    planes of ncol words and KT planes' masks, rgr words a plane."""
+    return stages * KT * (ncol + rgr) * 4
+
+
+def dense_smem_bytes(KT: int, WR: int, WC: int, WK: int) -> int:
+    """Shared memory of one K11/K12 block: its ring, reused after the last
+    tile for the sums of the WK - 1 warps along K past the first
+    (``Shape::smem_bytes``)."""
+    ring = ring_bytes(KT, 32 * COLS * WC, ROW_BLOCK * WR + MASK_PAD,
+                      DENSE_STAGES)
+    return max(ring, (WK - 1) * WR * WC * COLS * ROW_BLOCK * 32 * 4)
 
 
 def row_groups(R: int, WR: Optional[int] = None) -> tuple[int, int]:
@@ -45,6 +71,54 @@ def row_groups(R: int, WR: Optional[int] = None) -> tuple[int, int]:
         NRG = -(-nrb // MAX_WARPS)
         WR = -(-nrb // NRG)
     return -(-nrb // WR), WR
+
+
+@functools.lru_cache(maxsize=1024)
+def dense_shape(R: int, C: int, W: int,
+                sms: int) -> tuple[int, int, int, int, int]:
+    """(KT, WR, WC, WK, ksplit) of K11/K12 for (R, C) masks over (C, W)
+    planes on a card of ``sms`` SMs.
+
+    The row groups are :func:`row_groups`'s. KT is the K tile of
+    :data:`DENSE_KT` with the fewest padded planes plus
+    :data:`DENSE_TILE_COST` a tile (ties to the larger): padded planes'
+    zero masks still cost their LOP3s, and each tile its barrier. The
+    column warps WC (at most :data:`DENSE_WC`, and whose block fits
+    ``SMEM_BYTES``) minimise the columns the busiest SM computes,
+    ceil(blocks / sms) x ncol, and among those the shapes whose blocks
+    give every SM one come first, then the widest. Where no WC gives every
+    SM a block, the K tiles are split over enough blocks a column tile
+    that they do (at most one a tile): a split costs a zeroed output and
+    atomic stores, so it is taken only where columns alone leave SMs idle.
+    A launch that would leave the SMs under :data:`DENSE_MIN_WARPS` warps
+    each takes WK = 2 warps along K, where the block has room."""
+    if min(R, C, W, sms) < 1:
+        raise ValueError(f"no K11 shape for R={R}, C={C}, W={W}, sms={sms}")
+    NRG, WR = row_groups(R)
+    KT = min(DENSE_KT, key=lambda kt: (
+        -(-C // kt) * (kt + DENSE_TILE_COST), -kt))
+    best = None
+    for WC in range(1, min(DENSE_WC, MAX_WARPS // WR) + 1):
+        if dense_smem_bytes(KT, WR, WC, 1) > SMEM_BYTES:
+            break
+        ncol = 32 * COLS * WC
+        blocks = -(-W // ncol) * NRG
+        key = (-(-blocks // sms) * ncol, blocks < sms, -WC)
+        if best is None or key < best[0]:
+            best = (key, WC, blocks)
+    if best is None:
+        raise ValueError(f"no K11 block of {WR} row warps fits shared "
+                         f"memory at KT={KT}")
+    _, WC, blocks = best
+    ksplit = 1
+    if blocks < sms:
+        ksplit = max(1, min(-(-C // KT), -(-sms // blocks)))
+    WK = 1
+    if (blocks * ksplit * WR * WC < DENSE_MIN_WARPS * sms
+            and 2 * WR * WC <= MAX_WARPS
+            and dense_smem_bytes(KT, WR, WC, 2) <= SMEM_BYTES):
+        WK = 2
+    return KT, WR, WC, WK, ksplit
 
 
 @dataclass(frozen=True)
