@@ -5,7 +5,8 @@ It needs one CUDA device and ``nvcc``; without a device it exits non-zero
 before printing any result. Phases (one JSON line each):
 
 1. build — build the CUDA kernels from ``noise_ec_tpu_torch/csrc``, check
-   that no K8 kernel spills (ptxas) and, where the toolkit has
+   that no K8 kernel and no K9/K10 instantiation spills (ptxas; K9/K10's
+   registers are listed) and, where the toolkit has
    ``cuobjdump``, that the library's SASS holds wgmma (IGMMA) and no
    mma.sync (IMMA), and name the card (and its power limit, from
    nvidia-smi);
@@ -30,7 +31,8 @@ before printing any result. Phases (one JSON line each):
    matrix (each also against the NumPy field arithmetic on a 64 KiB
    slice), RS(200,56) in a batch of two, and an odd K (random (3, 5) bits)
    at a ragged width in a batch of two; and the 16-plane pack and unpack
-   K10 at RS(10,4)'s GF(2^16) shapes, with their round trip;
+   K10 at RS(10,4)'s GF(2^16) shapes, with their round trip, and at the
+   shapes each lanes-a-thread width covers (:func:`check_groups`);
    split_kernels — the K-sliced fused encode K5 against its plain version,
    at its plan and with its phases split over three blocks, on RS(50,20)'s
    parity and (20, 50) recovery matrix, RS(30,10), RS(40,12), GF(2^16)
@@ -38,7 +40,9 @@ before printing any result. Phases (one JSON line each):
    on a 64 KiB slice, RS(10,4) also against K1), on a batch of three and
    on ragged words through the codec;
    dense_kernels — the sublane pack and unpack K9 at RS(10,4)'s 1 MiB
-   shards and at TW = 3,072 (TL = 384), and the dense-mask products K11
+   shards and at TW = 3,072 (TL = 384), and at TL = 129, 130, 384 and
+   512, 4 bytes off a 16-byte boundary and through both stride loops
+   (:func:`check_groups`), and the dense-mask products K11
    and K12 on RS(10,4)'s (32, 80) select masks, random-word masks of that
    shape and RS(50,20)'s (160, 400) masks, at W = 32,767 and 1,001, on
    planes 4 bytes off a 16-byte boundary, with sliced masks, at R = 20 and
@@ -142,8 +146,10 @@ dense GF(2^8) matrix, and the timing probes of ``csrc/mxu_probe.cu`` (K8
 with parts of its work taken away, and the bare wgmma rate);
 ``--dense-sweep`` K11's under other launch shapes than ``dense_shape``'s
 and the probes of ``csrc/dense_probe.cu`` (K11 with its product or its
-copies left out), by CUDA events and torch.profiler's device time. ``--out
-FILE`` also writes every JSON line to FILE.
+copies left out), by CUDA events and torch.profiler's device time;
+``--pack-sweep`` every pack by events and device time beside a copy of its
+input's bytes, and K9/K10 at every lanes-a-thread width and block size.
+``--out FILE`` also writes every JSON line to FILE.
 """
 
 from __future__ import annotations
@@ -291,6 +297,9 @@ def phase_build() -> dict:
     k8_spills = [ln for ln in k8_log if not re.search(
         r"0 bytes spill stores, 0 bytes spill loads", ln)]
     check(not k8_spills, f"K8 kernels spill: {k8_spills}")
+    groups = groups_registers(_build.build_log.get("pack", ""))
+    check(len(groups) == 12 and not any(g["spill"] for g in groups),
+          f"K9/K10's 12 instantiations, none spilling: {groups}")
     sass = sass_counts(_build.build())
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -302,8 +311,27 @@ def phase_build() -> dict:
         "phase": "build", "seconds": round(time.monotonic() - t0, 3),
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
         "torch": torch.__version__, "cuda": torch.version.cuda,
-        "ptxas": ptxas, "sass": sass,
+        "ptxas": ptxas, "sass": sass, "k9_k10_registers": groups,
     }
+
+
+def groups_registers(log: str) -> list:
+    """K9/K10's instantiations in ``pack.cu``'s ptxas log
+    (``groups_kernel<N, V, kPack>``), each with its registers and whether
+    it spills."""
+    out = []
+    for entry in log.split("Compiling entry function")[1:]:
+        name = re.search(r"groups_kernelILi(\d+)ELi(\d+)ELb([01])E", entry)
+        regs = re.search(r"Used (\d+) registers", entry)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          entry)
+        if name and regs:
+            out.append({"N": int(name.group(1)), "V": int(name.group(2)),
+                        "pack": name.group(3) == "1",
+                        "registers": int(regs.group(1)),
+                        "spill": bool(spill and (int(spill.group(1))
+                                                 or int(spill.group(2))))})
+    return out
 
 
 def sass_counts(library) -> dict:
@@ -642,6 +670,85 @@ def k8_words(rng, tiles, field: str, device, batch: int = 0) -> torch.Tensor:
                       device)
 
 
+def groups_launch_of(x: torch.Tensor, group: int) -> dict:
+    """The launch K9/K10's wrapper takes for ``x`` (words to pack, or
+    planes to unpack, into a fresh aligned output): V, threads, grid."""
+    from noise_ec_tpu_torch.ops.pack import (
+        groups_launch,
+        groups_vec,
+        tile_lanes,
+    )
+
+    rows, TW = x.shape[0], x.numel() // x.shape[0]
+    V = groups_vec(tile_lanes(TW, group), group, x)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    threads, bx, by = groups_launch(rows, TW, group, V, sms)
+    return {"V": V, "threads": threads, "grid": [bx, by]}
+
+
+def check_groups(rng, device, group: int, results: dict, names) -> dict:
+    """K9 (group 8) or K10 (group 16) pack and unpack against their plain
+    versions and the round trip, at the TLs the new forms cover: 130 (V =
+    2) and 129 (V = 1), 384, 512; words and planes 4 bytes off a 16-byte
+    boundary (V = 1); and rows or a row long enough that the row-stride
+    and grid-stride loops run. Each case names the launch it ran."""
+    from noise_ec_tpu_torch.ops.pack import (
+        _pack_groups_plain,
+        _unpack_groups_plain,
+        pack_words16,
+        pack_words_sublane,
+        tile_lanes,
+        unpack_words16,
+        unpack_words_sublane,
+    )
+
+    kname = "K9" if group == 8 else "K10"
+    pack, unpack = ((pack_words_sublane, unpack_words_sublane) if group == 8
+                    else (pack_words16, unpack_words16))
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    # Past one wave of 256-thread blocks: rows on y, or lanes on x.
+    many_rows = sms * 8 + 1
+    long_row = group * 4 * 256 * sms * 8 * 2
+    cases = {"TL 130": (10, 130 * group, 0), "TL 129": (10, 129 * group, 0),
+             "TL 384": (10, 384 * group, 0), "TL 512": (10, 1024 * group, 0),
+             "4 bytes off": (10, 1024 * group, 1),
+             "row-stride loop": (many_rows, 128 * group, 0),
+             "grid-stride loop": (1, long_row, 0)}
+    report = {}
+    for case, (rows, tw, off) in cases.items():
+        flat = rand_words(rng, rows * tw + off, device)
+        words = flat[off:].reshape(rows, tw)
+        planes = pack(words)
+        err_p = max_abs_err(planes, _pack_groups_plain(words, group))
+        pflat = torch.empty(planes.numel() + off, dtype=torch.int32,
+                            device=device)
+        src = pflat[off:].view(planes.shape)
+        src.copy_(planes)
+        back = unpack(src)
+        err_u = max_abs_err(back, _unpack_groups_plain(src))
+        torch.cuda.synchronize()
+        check(err_p == 0 and err_u == 0, f"{kname} {case} vs plain")
+        check(torch.equal(back, words), f"{kname} {case} round trip")
+        report[case] = {"rows": rows, "TW": tw, "TL": tile_lanes(tw, group),
+                        "offset_bytes": 4 * off,
+                        "pack": groups_launch_of(words, group),
+                        "unpack": groups_launch_of(src, group),
+                        "equal": True}
+        for name, err in zip(names, (err_p, err_u)):
+            results[name]["max_abs_err"] = max(results[name]["max_abs_err"],
+                                               err)
+    # One pass of the grid covers less than the long row.
+    gs = report["grid-stride loop"]["pack"]
+    check(report["4 bytes off"]["pack"]["V"] == 1
+          and report["4 bytes off"]["unpack"]["V"] == 1
+          and report["TL 130"]["pack"]["V"] == 2
+          and report["TL 129"]["pack"]["V"] == 1
+          and report["row-stride loop"]["pack"]["grid"][1] < many_rows
+          and gs["grid"][0] * gs["threads"] * gs["V"] * group < long_row,
+          f"the {kname} cases reach every V and both loops: {report}")
+    return report
+
+
 def phase_gf16_kernels(rng, device, results: dict) -> dict:
     """K8 against its plain version at full width on the four matrices of
     :func:`k8_matrices` (and against the NumPy field arithmetic on a 64 KiB
@@ -733,7 +840,10 @@ def phase_gf16_kernels(rng, device, results: dict) -> dict:
     results["pack_words16"]["max_abs_err"] = err_p
     results["unpack_words16"]["max_abs_err"] = max(err_u, err_u4)
     report["k10"] = {"rows": [10, 4], "planes": list(planes.shape),
-                     "equal": True}
+                     "equal": True, "pack": groups_launch_of(words16, 16),
+                     "unpack": groups_launch_of(parity_planes, 16),
+                     "cases": check_groups(rng, device, 16, results, (
+                         "pack_words16", "unpack_words16"))}
     return report
 
 
@@ -1172,10 +1282,14 @@ def phase_dense_kernels(rng, device, results: dict) -> dict:
         torch.cuda.synchronize()
         check(err_p == 0 and err_u == 0, f"K9 pack/unpack TW={tw} vs plain")
         check(torch.equal(back, words), f"K9 round trip TW={tw}")
-        report[f"k9_tw{tw}"] = {"tl": tile_lanes(tw), "equal": True}
+        report[f"k9_tw{tw}"] = {"tl": tile_lanes(tw), "equal": True,
+                                "pack": groups_launch_of(words, 8),
+                                "unpack": groups_launch_of(planes, 8)}
         for name, err in (("pack_sublane", err_p), ("unpack_sublane", err_u)):
             results[name]["max_abs_err"] = max(results[name]["max_abs_err"],
                                                err)
+    report["k9_cases"] = check_groups(rng, device, 8, results, (
+        "pack_sublane", "unpack_sublane"))
 
     gf = GF256()
     M10, masks10 = dense_masks(gf, 10, 4)
@@ -2938,24 +3052,28 @@ def phase_panel_sweep(rng, device) -> dict:
 def device_us(fn, flush: torch.Tensor, name: str, reps: int = 10) -> float:
     """Device time a call of the kernels whose name holds ``name``, from a
     torch.profiler trace of ``reps`` calls each after an L2 flush
-    (microseconds). Taken after the event timings: the profiler's teardown
-    slows the host for a while."""
+    (microseconds); 0.0 if three traces in a row record none of them (a
+    trace can come back without device events). Taken after the event
+    timings: the profiler's teardown slows the host for a while."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize()
     total = 0.0
-    for ev in prof.key_averages():
-        t = getattr(ev, "device_time_total", None)
-        if t is None:
-            t = getattr(ev, "cuda_time_total", 0)
-        if name in ev.key:
-            total += t
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        for ev in prof.key_averages():
+            t = getattr(ev, "device_time_total", None)
+            if t is None:
+                t = getattr(ev, "cuda_time_total", 0)
+            if name in ev.key:
+                total += t
+        if total:
+            break
     return total / reps
 
 
@@ -3056,6 +3174,135 @@ def phase_dense_sweep(rng, device) -> dict:
                          for name in cases}}
 
 
+def pack_cases(rng, device) -> dict:
+    """The twelve pack rows of the kernels table at the shapes the times
+    phases take them (1 MiB shards): name -> (the call, its input, the
+    profiler name of its kernel, rows). K2/K3 and their m = 16 forms at
+    RS(10,4)'s shapes (10 rows in, 4 out), K6 at RS(200,56)'s (200, 56),
+    K6@16 at RS(50,20)'s (50, 20), K9 and K10 at RS(10,4)'s."""
+    from noise_ec_tpu_torch.ops.pack import (
+        blocked_lane_tl,
+        pack_words16,
+        pack_words_lanes,
+        pack_words_lanes_blocked,
+        pack_words_sublane,
+        unpack_words16,
+        unpack_words_lanes,
+        unpack_words_lanes_blocked,
+        unpack_words_sublane,
+    )
+
+    def words(rows):
+        return rand_words(rng, (rows, TW), device)
+
+    def lanes(rows, m):
+        return rand_words(rng, (rows, m, 8, TW // (8 * m)), device)
+
+    w10, w200, w50 = words(10), words(200), words(50)
+    l4, l4_16 = lanes(4, 8), lanes(4, 16)
+    b56, b20 = lanes(56, 8), lanes(20, 16)
+    check(blocked_lane_tl(TW) == 256 and blocked_lane_tl(TW, 16) == 128,
+          "the blocked TLs at 1 MiB shards")
+    g4 = rand_words(rng, (4, 8, TW // 8), device)
+    g4_16 = rand_words(rng, (4, 16, TW // 16), device)
+    return {
+        "pack_lanes": (lambda: pack_words_lanes(w10, 512), w10,
+                       "lanes_kernel", 10),
+        "unpack_lanes": (lambda: unpack_words_lanes(l4, 512), l4,
+                         "lanes_kernel", 4),
+        "pack_lanes16": (lambda: pack_words_lanes(w10, 512, 16), w10,
+                         "lanes_kernel", 10),
+        "unpack_lanes16": (lambda: unpack_words_lanes(l4_16, 512), l4_16,
+                           "lanes_kernel", 4),
+        "pack_lanes_blocked": (lambda: pack_words_lanes_blocked(w200), w200,
+                               "lanes_kernel", 200),
+        "unpack_lanes_blocked": (lambda: unpack_words_lanes_blocked(b56), b56,
+                                 "lanes_kernel", 56),
+        "pack_lanes_blocked16": (lambda: pack_words_lanes_blocked(w50, 16),
+                                 w50, "lanes_kernel", 50),
+        "unpack_lanes_blocked16": (lambda: unpack_words_lanes_blocked(b20),
+                                   b20, "lanes_kernel", 20),
+        "pack_sublane": (lambda: pack_words_sublane(w10), w10,
+                         "groups_kernel", 10),
+        "unpack_sublane": (lambda: unpack_words_sublane(g4), g4,
+                           "groups_kernel", 4),
+        "pack_words16": (lambda: pack_words16(w10), w10, "groups_kernel", 10),
+        "unpack_words16": (lambda: unpack_words16(g4_16), g4_16,
+                           "groups_kernel", 4),
+    }
+
+
+def phase_pack_sweep(rng, device) -> dict:
+    """The twelve packs (:func:`pack_cases`) by CUDA events and by
+    torch.profiler's device time, each beside a copy of its input's bytes
+    (``torch.empty_like(src).copy_(src)``, the profiler's "Memcpy DtoD"):
+    a pass that reads and writes each word once, the packs' practical
+    floor. The copy is a yardstick only; the port never calls it. Then K9
+    and K10 (pack and unpack) at every V and block size of their launch
+    menu on the planned grid for that block, each held equal to the plain
+    version first."""
+    from noise_ec_tpu_torch.ops.pack import (
+        GROUP_THREADS,
+        GROUP_VECS,
+        _groups,
+        _pack_groups_plain,
+        _unpack_groups_plain,
+        groups_launch,
+    )
+
+    timer = Timer(device)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    rows, sweep = [], []
+    cases = pack_cases(rng, device)
+    for name, (fn, src, kname, nrows) in cases.items():
+        def copy(src=src):
+            return torch.empty_like(src).copy_(src)
+
+        nbytes = 2 * src.numel() * 4
+        rows.append({"kernel": name, "rows": nrows,
+                     "shape": list(src.shape), "fn": fn, "copy": copy,
+                     "kname": kname, "bytes": nbytes,
+                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                     "ms": timer.median_ms(fn),
+                     "copy_ms": timer.median_ms(copy)})
+    for name, group, pack in (("pack_sublane", 8, True),
+                              ("unpack_sublane", 8, False),
+                              ("pack_words16", 16, True),
+                              ("unpack_words16", 16, False)):
+        src = cases[name][1]
+        want = (_pack_groups_plain(src, group) if pack
+                else _unpack_groups_plain(src))
+        TW = src.numel() // src.shape[0]
+        for V, threads in itertools.product(GROUP_VECS, GROUP_THREADS):
+            def fn(src=src, group=group, pack=pack, V=V, threads=threads,
+                   name=name):
+                return _groups(src, group, pack, name, V, threads)
+
+            check(torch.equal(fn(), want), f"pack sweep {name} V={V} "
+                  f"threads={threads}")
+            sweep.append({"kernel": name, "V": V, "threads": threads,
+                          "grid": list(groups_launch(
+                              src.shape[0], TW, group, V, sms, threads)[1:]),
+                          "planned": groups_launch_of(src, group) == {
+                              "V": V, "threads": threads, "grid": list(
+                                  groups_launch(src.shape[0], TW, group, V,
+                                                sms, threads)[1:])},
+                          "fn": fn, "ms": timer.median_ms(fn)})
+    # Device times after every event timing: a trace slows the host after.
+    for row in rows:
+        row["device_us"] = device_us(row.pop("fn"), timer.flush,
+                                     row.pop("kname"))
+        row["copy_device_us"] = device_us(row.pop("copy"), timer.flush,
+                                          "Memcpy DtoD")
+        if row["device_us"] and row["copy_device_us"]:
+            row["over_copy"] = row["device_us"] / row["copy_device_us"]
+            row["share_of_bound"] = row["bound_ms"] * 1e3 / row["device_us"]
+    for row in sweep:
+        row["device_us"] = device_us(row.pop("fn"), timer.flush,
+                                     "groups_kernel")
+    return {"phase": "pack_sweep", "rows": rows, "groups_sweep": sweep}
+
+
 def phase_mxu_sweep(rng, device) -> dict:
     """K8 at every width of ``ops/mxu.py`` N_MENU on RS(200,56)'s GF(2^16)
     parity and the dense (200, 200) GF(2^8) matrix at 1 MiB shards (the
@@ -3143,6 +3390,9 @@ def main() -> int:
     parser.add_argument("--dense-sweep", action="store_true",
                         help="also time K11 under other launch shapes and "
                         "its probes")
+    parser.add_argument("--pack-sweep", action="store_true",
+                        help="also time every pack by device time beside "
+                        "a copy of its bytes")
     parser.add_argument("--out", help="also write every JSON line here")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -3242,6 +3492,8 @@ def main() -> int:
         timed(phase_mxu_sweep, rng, device)
     if args.dense_sweep:
         timed(phase_dense_sweep, rng, device)
+    if args.pack_sweep:
+        timed(phase_pack_sweep, rng, device)
     kernels = []
     for name, res in results.items():
         res["launches"] = main_path["launches"][name]

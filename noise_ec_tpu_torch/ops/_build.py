@@ -48,10 +48,8 @@ _p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "ec_pack_lanes": [_p, _p, _ll, _ll, _i, _i, _p],
     "ec_unpack_lanes": [_p, _p, _ll, _ll, _i, _i, _p],
-    "ec_pack_groups8": [_p, _p, _ll, _ll, _ll, _p],
-    "ec_unpack_groups8": [_p, _p, _ll, _ll, _ll, _p],
-    "ec_pack_groups16": [_p, _p, _ll, _ll, _ll, _p],
-    "ec_unpack_groups16": [_p, _p, _ll, _ll, _ll, _p],
+    "ec_groups": [_i, _p, _p, _i, _i, _i, ctypes.c_uint, _i, _i, _i, _i, _i,
+                  _i, _p],
     "ec_gf2mm": [_p, _p, _i, _ll, _i, _i, _p, _p, _p, _i, _i, _i, _p, _i, _i,
                  _p],
     "ec_gf2mm_dense": [_p, _p, _p, _i, _i, _ll, _ll, _ll, _i, _i, _i, _i, _i,

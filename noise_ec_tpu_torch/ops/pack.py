@@ -33,10 +33,12 @@ plane matrix. The GF(2^16) pair (:func:`pack_words16`,
 ``_unpack16_kernel``: the same sublane bijection at 16 words a group, so
 interleaved-u16 words become 16 bit-planes ``(rows, 16, TW/16)`` through
 the 16x16 delta-swap. One CUDA kernel, templated on the group, serves
-both. Beside them sit the layout helpers of the byte-sliced GF(2^16)
-route: the host relayout between u16 symbols and adjacent lo/hi byte
-rows, and its device counterpart on words (plain PyTorch bit ops, as in
-the reference).
+both; its launch is planned here: the lanes a thread moves in one vector
+(:func:`groups_vec`), the block and grid (:func:`groups_launch`) and the
+multiply that divides by TL (:func:`lane_divider`). Beside them sit the
+layout helpers of the byte-sliced GF(2^16) route: the host relayout
+between u16 symbols and adjacent lo/hi byte rows, and its device
+counterpart on words (plain PyTorch bit ops, as in the reference).
 
 Each kernel has a plain PyTorch version beside it. The wrappers take the
 plain version only for a tensor on the CPU; a CUDA tensor launches the
@@ -45,6 +47,7 @@ kernel or raises. ``LAUNCHES`` counts kernel launches.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -316,39 +319,105 @@ def unpack_words16_plain(planes: torch.Tensor) -> torch.Tensor:
     return _unpack_groups_plain(planes)
 
 
-def _pack_groups(words: torch.Tensor, group: int, counter: str) -> torch.Tensor:
-    if words.dtype != torch.int32 or words.dim() != 2 \
-            or not words.is_contiguous():
-        raise ValueError(
-            f"expected contiguous (rows, TW) int32 words, got {words.dtype} "
-            f"{tuple(words.shape)}"
-        )
-    rows, TW = words.shape
+# K9/K10's launch menu (csrc/pack.cu groups_kernel): lanes a thread, in one
+# 16-, 8- or 4-byte vector, and threads a block, widest first; the words a
+# thread may hold (V x N: at N = 16 four lanes are 64 words, 80-86
+# registers and a 768-op transpose chain a thread, which read up to 17%
+# slower than two lanes on an H100 by `chip_smoke.py --pack-sweep`: the
+# unpack at every block size, the pack at 256 threads); the threads an SM
+# holds at once (the H100's 2048), which sizes one wave; the grid's y
+# limit (rows beyond it take the row-stride loop).
+GROUP_VECS = (4, 2, 1)
+GROUP_THREADS = (256, 128, 64)
+GROUP_WORDS = 32
+SM_THREADS = 2048
+MAX_GRID_Y = 65535
+
+
+@functools.lru_cache(maxsize=1024)
+def lane_divider(TL: int) -> tuple[int, int]:
+    """(magic, shift) with q // TL == (umulhi(q, magic) + q) >> shift for
+    every 0 <= q < 2^31: the division K9/K10 do by a multiply (shift =
+    ceil(log2 TL), magic = 2^32 (2^shift - TL) // TL + 1 < 2^32)."""
+    if not 1 <= TL < 1 << 31:
+        raise ValueError(f"no divider for TL={TL}")
+    shift = (TL - 1).bit_length()
+    return ((1 << 32) * ((1 << shift) - TL)) // TL + 1, shift
+
+
+@functools.lru_cache(maxsize=1024)
+def groups_launch(rows: int, TW: int, group: int, vec: int, sms: int,
+                  threads: Optional[int] = None) -> tuple[int, int, int]:
+    """(threads, blocks_x, blocks_y) of K9/K10 on (rows, TW) words at
+    ``vec`` lanes a thread on a card of ``sms`` SMs. Rows go on y, a row's
+    TW / (group * vec) thread items on x. The widest block of
+    :data:`GROUP_THREADS` that gives every SM a block is taken (else the
+    narrowest), unless ``threads`` is given. The grid is capped at one wave
+    (``sms`` x :data:`SM_THREADS` threads): y at min(rows,
+    :data:`MAX_GRID_Y`, the wave's blocks), x at the wave's blocks over y;
+    the kernel's loops stride past the cap."""
+    if min(rows, TW, sms) < 1 or vec not in GROUP_VECS \
+            or TW % (group * vec):
+        raise ValueError(f"no K9/K10 launch for rows={rows}, TW={TW}, "
+                         f"group={group}, V={vec}, sms={sms}")
+    items = TW // (group * vec)
+    if threads is None:
+        threads = next((t for t in GROUP_THREADS
+                        if -(-items // t) * rows >= sms), GROUP_THREADS[-1])
+    if threads not in GROUP_THREADS:
+        raise ValueError(f"no K9/K10 block of {threads} threads")
+    wave = sms * (SM_THREADS // threads)
+    by = min(rows, MAX_GRID_Y, wave)
+    bx = min(-(-items // threads), max(1, wave // by))
+    return threads, bx, by
+
+
+def groups_vec(TL: int, group: int, *tensors: torch.Tensor) -> int:
+    """K9/K10's lanes a thread: the largest V of :data:`GROUP_VECS` whose
+    V x ``group`` words fit :data:`GROUP_WORDS`, that divides TL, and to
+    whose 4V bytes every tensor's start is aligned."""
+    return next(V for V in GROUP_VECS if V * group <= GROUP_WORDS
+                and TL % V == 0
+                and all(t.data_ptr() % (4 * V) == 0 for t in tensors))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _groups(x: torch.Tensor, group: int, pack: bool, counter: str,
+            vec: Optional[int] = None,
+            threads: Optional[int] = None) -> torch.Tensor:
+    """K9/K10: pack (rows, TW) words into (rows, group, TW/group) planes,
+    or unpack them back; ``vec`` and ``threads`` override the launch's
+    lanes a thread and block (:func:`groups_vec`, :func:`groups_launch`)."""
+    ok = x.dim() == 2 if pack else x.dim() == 3 and x.shape[1] == group
+    if x.dtype != torch.int32 or not ok or not x.is_contiguous():
+        what = "(rows, TW) words" if pack else f"(rows, {group}, W) planes"
+        raise ValueError(f"expected contiguous {what} int32, got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    rows, TW = x.shape[0], x.shape[1] if pack else group * x.shape[2]
     tl = tile_lanes(TW, group)
-    if words.device.type == "cpu":
-        return _pack_groups_plain(words, group)
-    out = torch.empty((rows, group, TW // group), dtype=torch.int32,
-                      device=words.device)
-    _launch(f"ec_pack_groups{group}", words, out, rows, TW, tl)
-    LAUNCHES[counter] += 1
-    return out
-
-
-def _unpack_groups(planes: torch.Tensor, group: int,
-                   counter: str) -> torch.Tensor:
-    if planes.dtype != torch.int32 or planes.dim() != 3 \
-            or not planes.is_contiguous() or planes.shape[1] != group:
-        raise ValueError(
-            f"expected contiguous (rows, {group}, W) int32 planes, got "
-            f"{planes.dtype} {tuple(planes.shape)}"
-        )
-    rows, _, W = planes.shape
-    tl = tile_lanes(group * W, group)
-    if planes.device.type == "cpu":
-        return _unpack_groups_plain(planes)
-    out = torch.empty((rows, group * W), dtype=torch.int32,
-                      device=planes.device)
-    _launch(f"ec_unpack_groups{group}", planes, out, rows, group * W, tl)
+    if x.device.type == "cpu":
+        return _pack_groups_plain(x, group) if pack \
+            else _unpack_groups_plain(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    if TW >= 1 << 31 or rows >= 1 << 31:
+        raise ValueError(f"K9/K10 index in 32 bits: rows={rows}, TW={TW}")
+    shape = (rows, group, TW // group) if pack else (rows, TW)
+    out = torch.empty(shape, dtype=torch.int32, device=x.device)
+    if rows == 0 or TW == 0:
+        return out
+    V = groups_vec(tl, group, x, out) if vec is None else vec
+    if tl % V or x.data_ptr() % (4 * V) or out.data_ptr() % (4 * V):
+        raise ValueError(f"V={V} lanes do not fit TL={tl} or the alignment")
+    nthreads, bx, by = groups_launch(rows, TW, group, V,
+                                     _sm_count(x.device.index), threads)
+    magic, shift = lane_divider(tl)
+    _build.launch("ec_groups", x, int(pack), _build.ptr(x), _build.ptr(out),
+                  rows, TW, tl, magic, shift, group, V, nthreads, bx, by)
     LAUNCHES[counter] += 1
     return out
 
@@ -358,12 +427,12 @@ def pack_words_sublane(words: torch.Tensor) -> torch.Tensor:
     reference's ``pack_words_pallas``; plane i of row j is row 8j + i of
     the (8*rows, TW/8) plane matrix. TW must be a multiple of 8*128.
     Inverse: :func:`unpack_words_sublane`."""
-    return _pack_groups(words, 8, "pack_sublane")
+    return _groups(words, 8, True, "pack_sublane")
 
 
 def unpack_words_sublane(planes: torch.Tensor) -> torch.Tensor:
     """K9 unpack: (rows, 8, W) int32 bit-planes -> (rows, 8*W) words."""
-    return _unpack_groups(planes, 8, "unpack_sublane")
+    return _groups(planes, 8, False, "unpack_sublane")
 
 
 def pack_words16(words: torch.Tensor) -> torch.Tensor:
@@ -371,12 +440,12 @@ def pack_words16(words: torch.Tensor) -> torch.Tensor:
     TW/16) bit-planes; plane i of row j holds bit i of its 32 symbols a
     group. TW must be a multiple of 16*128. Inverse:
     :func:`unpack_words16`."""
-    return _pack_groups(words, 16, "pack_words16")
+    return _groups(words, 16, True, "pack_words16")
 
 
 def unpack_words16(planes: torch.Tensor) -> torch.Tensor:
     """K10 unpack: (rows, 16, W) int32 bit-planes -> (rows, 16*W) words."""
-    return _unpack_groups(planes, 16, "unpack_words16")
+    return _groups(planes, 16, False, "unpack_words16")
 
 
 # -- GF(2^16): the byte-sliced layouts ---------------------------------------
