@@ -101,6 +101,26 @@ before printing any result. Phases (one JSON line each):
    with one wholly corrupt (the device route's decode1 fold), and of all
    14 with scattered corruption (the syndrome), and GF(2^16) ``FEC(10,
    14)`` with one wholly corrupt share (the byte-sliced fold);
+   resilience — the codec breaker on the card: RS(10,4) at 1 MiB shards
+   with ``DeviceCodec.matmul_stripes_many`` patched to raise (two
+   attempts, the trip, ``CodecUnavailableError`` with
+   ``noise_ec_codec_refused_total`` reason "error", then encode and
+   reconstruct refused with reason "open", and no product run on the
+   host), the prober's canary re-closing the breaker on the card within
+   30 s and the next encode (K5) and reconstruct on the card, equal to
+   the host arithmetic; a launch patched to raise ``KernelLaunchError``,
+   which propagates with the breaker closed and the counters unchanged;
+   8 threads of RS(10,4) encodes, 4 in the live lane and 4 in the
+   background lane, through a capacity-2 gate, byte-equal, each lane's
+   grants counted; then the breaker and the gate are reset;
+   lrc — ``LocalReconstructionCode`` LRC(12,2,2), LRC(40,8,8) and
+   LRC(200,10,46) at 1 MiB shards: encode, every single loss of every
+   group cell healed locally (k/g reads), two losses in one cell through
+   the global reconstruct, ``repair_many`` of three stripes, each held
+   byte-equal to the NumPy LRC with the same tier counters; each matrix's
+   ``route_for``, and encode GB/s, local-heal p50 and global-reconstruct
+   p50. These two phases print their paths' launches on their own lines
+   (``by_path``, ``launches``); the kernels line keeps the main path's;
 4. times — CUDA-event medians with the L2 cache flushed between launches:
    each kernel and its plain version beside the least time the card could
    take, the codec's RS(10,4) encode rate (device-resident words and end
@@ -133,9 +153,22 @@ before printing any result. Phases (one JSON line each):
    at RS(10,4)'s shapes, and K11 on RS(50,20)'s masks, with K11's block
    shape and K split;
    fec_times — the FEC decode p50 per case and route on the host clock,
-   beside the CUDA-event time of the device route's product.
+   beside the CUDA-event time of the device route's product;
+   layer_cost — RS(4,2) on a 64 KiB message and RS(10,4) at 1 MiB
+   shards, encode and reconstruct p50, the gate, ``device_op``,
+   ``record_kernel`` and the breaker alone, and the two cases with those
+   layers on and off in turn in one process
+   (``noise_ec_tpu_torch/tools/layer_cost.py``).
 
-Each phase's line carries its seconds.
+Each phase's line carries its seconds and its ``health``, checked after
+the phase as differences across it: no product fell back to the host
+(the reference's ``noise_ec_codec_fallback_total``, which the port never
+records, reads 0 for "error" and "open"), the breaker refused no product
+(``noise_ec_codec_refused_total``; the resilience phase, the ones it
+provokes), the codec breaker is closed, the device gate is idle, every
+public-entry call of the phase was timed by ``device_op`` (less the one
+launch the resilience phase makes fail), and each entry it used has
+execute-route observations. A miss fails the run.
 
 Then a ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
 ``--panel-sweep`` adds, before those two lines, K7's time under other
@@ -162,6 +195,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -951,6 +985,9 @@ def phase_split_kernels(rng, device, results: dict, codec, codec16) -> dict:
     got = codec.matmul_words_batch(M, ragged)
     torch.cuda.synchronize()
     check(e3 == 0, "K5 on a batch of three (TW = 8,192) vs plain")
+    # The same call again: its key's second call, device_op's execute route.
+    check(torch.equal(codec.matmul_words_batch(M, ragged), got),
+          "K5 on ragged words, called again")
     for b in range(3):
         for lo in (0, TW - 5 - cols):
             check(np.array_equal(
@@ -1662,8 +1699,12 @@ def main_path_gf16(rng, run_path, out: dict) -> dict:
                                    HOST_SLICE // 4),
                                   ("RS(49,2) tier 3", M49, w49, i49,
                                    HOST_SLICE // 4)):
-        via = bytesliced_to_words16(
-            codec16.matmul_words_bytesliced(M, words16_to_bytesliced(w)))
+        sliced = words16_to_bytesliced(w)
+        once = codec16.matmul_words_bytesliced(M, sliced)
+        # Called twice: the key's second call is device_op's execute route.
+        check(torch.equal(codec16.matmul_words_bytesliced(M, sliced), once),
+              f"the byte-sliced entry at {name}, called again")
+        via = bytesliced_to_words16(once)
         host = host_matvec(gf16, M, w[:, :cols].cpu().numpy().view("<u2"))
         check(torch.equal(got, via),
               f"interleaved GF(2^16) {name} vs the byte-sliced entry")
@@ -3380,6 +3421,472 @@ def phase_mxu_sweep(rng, device) -> dict:
                 "mxu_probe", "").splitlines() if "spill" in ln]}
 
 
+def nvidia_smi() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def obs_counts() -> dict:
+    """Per public entry, the ``noise_ec_kernel_calls_total`` calls and the
+    ``noise_ec_device_op_seconds`` observations recorded so far, and the
+    codec breaker's refusals by reason."""
+    from noise_ec_tpu_torch.obs import default_registry
+
+    reg = default_registry()
+    refused = reg.counter("noise_ec_codec_refused_total")
+    return {
+        "calls": {key[0]: c.value for key, c in reg.counter(
+            "noise_ec_kernel_calls_total").children()},
+        "ops": {key: h.count for key, h in reg.histogram(
+            "noise_ec_device_op_seconds").children()},
+        "refused": {r: refused.labels(reason=r).value
+                    for r in ("error", "open")},
+    }
+
+
+def phase_health(before: dict, report: dict) -> dict:
+    """After every phase: no product ran on the host (the reference's
+    ``noise_ec_codec_fallback_total`` reads 0 for every reason: the port
+    never records it), the codec breaker refused exactly the products the
+    phase meant it to (``report["expect_refused"]``, else none), the
+    breaker is closed, the device gate is idle, every public-entry call
+    the phase made was timed by ``device_op`` (compile plus execute
+    observations equal the calls, less the calls the phase made fail on
+    purpose, ``report["failed_calls"]``), and each entry it used has
+    execute-route observations. Raises on a miss."""
+    from noise_ec_tpu_torch.obs import default_registry
+    from noise_ec_tpu_torch.ops.dispatch import codec_breaker, device_gate
+
+    reg = default_registry()
+    fallback = reg.counter("noise_ec_codec_fallback_total")
+    fallbacks = {reason: fallback.labels(reason=reason).value
+                 for reason in ("error", "open")}
+    check(all(v == 0 for v in fallbacks.values()),
+          f"no product fell back to the host: {fallbacks}")
+    after = obs_counts()
+    refused = {r: n - before["refused"][r]
+               for r, n in after["refused"].items()}
+    want = report.get("expect_refused", {"error": 0, "open": 0})
+    check(refused == want, f"the breaker refused {refused}, expected {want}")
+    state = codec_breaker().state()
+    check(state == "closed", f"the codec breaker is closed ({state})")
+    gate = device_gate()
+    check(gate.in_flight == 0 and gate.waiters == 0,
+          f"the device gate is idle ({gate.in_flight} in flight, "
+          f"{gate.waiters} waiting)")
+    failed = report.get("failed_calls", {})
+    entries = {}
+    for entry, n in after["calls"].items():
+        calls = n - before["calls"].get(entry, 0)
+        if calls <= 0:
+            continue
+        seen = {route: after["ops"].get((entry, route), 0)
+                - before["ops"].get((entry, route), 0)
+                for route in ("compile", "execute")}
+        check(seen["compile"] + seen["execute"]
+              == calls - failed.get(entry, 0),
+              f"every {entry} call timed ({calls} calls, "
+              f"{failed.get(entry, 0)} failed on purpose, {seen})")
+        check(after["ops"].get((entry, "execute"), 0) > 0,
+              f"{entry} has execute-route observations")
+        entries[entry] = {"calls": calls, **seen}
+    return {"fallbacks": fallbacks, "refused": refused, "breaker": state,
+            "entries": entries}
+
+
+def phase_resilience(rng) -> dict:
+    """The codec breaker on the card, RS(10,4) at 1 MiB shards.
+
+    With ``DeviceCodec.matmul_stripes_many`` patched to raise
+    ``RuntimeError``: exactly two attempts, the trip, and
+    ``CodecUnavailableError`` chained to the fault with ``reason="error"``
+    +1; then encode and reconstruct refused at once with ``reason="open"``;
+    the codec's host arithmetic runs no product throughout. With the patch
+    lifted, the prober's canary (on the card) re-closes the breaker within
+    30 s, and the next encode and reconstruct run on the device (K5) with
+    the bytes of ``host_matvec``. A launch patched to raise
+    ``KernelLaunchError`` propagates with the breaker closed and the
+    counters unchanged. Then 8 threads of RS(10,4) encodes, 4 in the live
+    lane and 4 in the background lane, through a capacity-2 gate: every
+    result byte-equal, each lane's grants counted. The breaker and the
+    gate are reset at the end; the health check after the phase reads
+    the refusals and the failed launch it expects from the report."""
+    import noise_ec_tpu_torch.codec.rs as rs_module
+    from noise_ec_tpu_torch.codec import ReedSolomon
+    from noise_ec_tpu_torch.matrix import host_matvec
+    from noise_ec_tpu_torch.obs import default_event_log, default_registry
+    from noise_ec_tpu_torch.ops import _build, launch_counts, \
+        reset_launch_counts
+    from noise_ec_tpu_torch.ops.coalesce import qos_lane
+    from noise_ec_tpu_torch.ops.dispatch import (
+        CodecUnavailableError,
+        DeviceCodec,
+        configure_codec_breaker,
+        configure_device_gate,
+    )
+
+    reg = default_registry()
+    refused = reg.counter("noise_ec_codec_refused_total")
+
+    def counts():
+        return {r: refused.labels(reason=r).value for r in ("error", "open")}
+
+    def refuses(fn):
+        try:
+            fn()
+        except CodecUnavailableError as exc:
+            return exc
+        return None
+
+    br = configure_codec_breaker(reset_timeout=0.5, max_reset_timeout=4.0)
+    rs = ReedSolomon(10, 4)
+    data = [rng.integers(0, 256, size=SHARD, dtype=np.uint8)
+            for _ in range(10)]
+    D = np.stack(data)
+    parity = host_matvec(rs.gf, rs.G[10:], D)
+    lost = (0, 5, 11)
+    damaged = [None if i in lost else s for i, s in
+               enumerate(data + list(parity))]
+    report = {"phase": "resilience", "code": "RS(10,4)",
+              "shard_bytes": SHARD}
+    by_path = {}
+
+    attempts = {"n": 0}
+    host_runs = {"n": 0}
+    real = DeviceCodec.matmul_stripes_many
+    real_host = rs_module.host_matvec
+
+    def injected(self, M, Ds):
+        if self is rs._dev:  # the prober's canary has a codec of its own
+            attempts["n"] += 1
+        raise RuntimeError("injected device fault")
+
+    def host_spy(*a, **k):
+        host_runs["n"] += 1
+        return real_host(*a, **k)
+
+    c0 = counts()
+    DeviceCodec.matmul_stripes_many = injected
+    rs_module.host_matvec = host_spy
+    try:
+        exc = refuses(lambda: rs.encode(data))
+        check(exc is not None and isinstance(exc.__cause__, RuntimeError),
+              f"the encode raised CodecUnavailableError from the fault "
+              f"({exc!r})")
+        check(attempts["n"] == 2, f"two attempts ({attempts['n']})")
+        check(br.state() == "open", "the breaker tripped")
+        check(counts() == {"error": c0["error"] + 1, "open": c0["open"]},
+              "reason=error +1")
+        t_trip = time.monotonic()
+        check(refuses(lambda: rs.encode(data)) is not None,
+              "open: the next encode is refused")
+        check(attempts["n"] == 2, "open: the device is not tried")
+        check(counts()["open"] == c0["open"] + 1,
+              "reason=open on the next call")
+        check(refuses(lambda: rs.reconstruct(damaged)) is not None,
+              "open: the reconstruct is refused")
+        check(counts()["open"] == c0["open"] + 2, "reconstruct counted open")
+    finally:
+        DeviceCodec.matmul_stripes_many = real
+    report["refuse"] = {"attempts": attempts["n"],
+                        "refused": {r: counts()[r] - c0[r] for r in c0},
+                        "events": len(default_event_log().dump(
+                            name="codec.refused"))}
+    deadline = time.monotonic() + 30
+    while time.monotonic() < deadline and not br.closed:
+        time.sleep(0.02)
+    check(br.closed, f"the prober re-closed the breaker in 30 s "
+          f"({br.snapshot()})")
+    from noise_ec_tpu_torch.ops import dispatch
+
+    check(dispatch._probe_target.type == "cuda",
+          "the canary ran on the card")
+    report["reclose_seconds"] = time.monotonic() - t_trip
+    report["restore_events"] = len(default_event_log().dump(
+        name="codec.restore"))
+    check(report["restore_events"] >= 1, "codec.restore event")
+    try:
+        reset_launch_counts()
+        enc3 = rs.encode(data)
+        rec3 = rs.reconstruct(damaged)
+        torch.cuda.synchronize()
+        by_path["after_reclose"] = launch_counts()
+    finally:
+        rs_module.host_matvec = real_host
+    check(host_runs["n"] == 0,
+          f"the codec ran no product on the host ({host_runs['n']})")
+    check(by_path["after_reclose"]["fused_split"] >= 1
+          and sum(by_path["after_reclose"].values()) >= 2,
+          "the encode (K5) and reconstruct after the re-close ran on the "
+          "card")
+    check(all(np.array_equal(a, b) for a, b in zip(enc3[10:], parity)),
+          "device encode after the re-close == host_matvec")
+    check(all(np.array_equal(rec3[i], enc3[i]) for i in lost),
+          "device reconstruct after the re-close")
+    report["expect_refused"] = {"error": 1, "open": 2}
+
+    real_launch = _build.launch
+    tried = {"n": 0}
+
+    def refuse(fn, *args, **kw):
+        tried["n"] += 1
+        raise _build.KernelLaunchError(f"{fn}: injected refusal")
+
+    c1 = counts()
+    _build.launch = refuse
+    try:
+        rs.encode(data)
+    except _build.KernelLaunchError:
+        raised = True
+    else:
+        raised = False
+    finally:
+        _build.launch = real_launch
+    check(raised and tried["n"] == 1,
+          f"KernelLaunchError propagates at once ({tried['n']} launches)")
+    check(br.state() == "closed" and counts() == c1,
+          "the launch error left the breaker closed, counters unchanged")
+    report["launch_error"] = {"propagated": raised, "launches": tried["n"],
+                              "breaker": br.state()}
+    # The refused launch's matmul_stripes call was counted and, having
+    # raised, not timed.
+    report["failed_calls"] = {"matmul_stripes": 1}
+
+    gate = configure_device_gate(capacity=2)
+    grants = reg.counter("noise_ec_lane_grants_total")
+    g0 = {lane: grants.labels(lane=lane).value
+          for lane in ("live", "background")}
+    datas = [[rng.integers(0, 256, size=SHARD, dtype=np.uint8)
+              for _ in range(10)] for _ in range(8)]
+    wants = [host_matvec(rs.gf, rs.G[10:], np.stack(d)) for d in datas]
+    results, errors = [None] * 8, []
+
+    def worker(i):
+        try:
+            with qos_lane("live" if i < 4 else "background", tenant=str(i)):
+                for _ in range(3):
+                    results[i] = rs.encode(datas[i])[10:]
+        except BaseException as exc:  # noqa: BLE001 — checked below
+            errors.append(exc)
+
+    reset_launch_counts()
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+        check(not t.is_alive(), "a lane thread finished")
+    torch.cuda.synchronize()
+    by_path["lanes"] = launch_counts()
+    check(not errors, f"lane threads: {errors}")
+    for got, want in zip(results, wants):
+        check(np.array_equal(np.stack(got), want), "lane encode byte-equal")
+    lane_grants = {lane: grants.labels(lane=lane).value - g0[lane]
+                   for lane in ("live", "background")}
+    check(all(v > 0 for v in lane_grants.values()),
+          f"each lane's grants counted: {lane_grants}")
+    check(gate.in_flight == 0 and gate.waiters == 0, "the gate drained")
+    report["lanes"] = {"threads": 8, "capacity": 2, "grants": lane_grants,
+                       "waits": gate.waits}
+    # A fresh breaker and gate for the next phase (the health check reads
+    # every counter as a difference across the phase).
+    configure_codec_breaker(reset_timeout=5.0, max_reset_timeout=60.0)
+    configure_device_gate()
+    report["by_path"] = by_path
+    report["launches"] = {name: sum(c[name] for c in by_path.values())
+                          for name in by_path["lanes"]}
+    return report
+
+
+# The three LRC deployments of the lrc phase: (name, k, local groups,
+# global parities, source).
+LRC_CONFIGS = (
+    ("LRC(12,2,2)", 12, 2, 2,
+     "Huang et al., Erasure Coding in Windows Azure Storage, 2012"),
+    ("LRC(40,8,8)", 40, 8, 8, "docs/lrc.md:72"),
+    ("LRC(200,10,46)", 200, 10, 46, "docs/lrc.md:111, the archive tier"),
+)
+
+
+def phase_lrc(rng) -> dict:
+    """``LocalReconstructionCode`` on the card at 1 MiB shards, each case
+    held byte-equal to the port's ``backend="numpy"`` LRC with the same
+    tier counters: encode (on a 64 KiB slice of every shard past 64 data
+    shards, as for RS(200,56)), every single loss of every group cell
+    healed locally from k/g reads, two losses in one cell through the
+    global reconstruct, and ``repair_many`` of three stripes (one local
+    loss a cell in two cells). Launch counts are zeroed before each path
+    and read after; prints each matrix's route and the encode GB/s,
+    local-heal p50 and global-reconstruct p50 beside the card's name and
+    power limit."""
+    from noise_ec_tpu_torch.codec import LocalReconstructionCode
+    from noise_ec_tpu_torch.obs import default_registry
+    from noise_ec_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    reg = default_registry()
+    heals = reg.counter("noise_ec_lrc_repairs_total")
+    reads = reg.counter("noise_ec_lrc_repair_shards_read_total")
+
+    def tiers():
+        return tuple(fam.labels(tier=t).value for fam in (heals, reads)
+                     for t in ("local", "global"))
+
+    def counted(fn):
+        t0 = tiers()
+        out = fn()
+        return out, tuple(b - a for a, b in zip(t0, tiers()))
+
+    def run_path(fn):
+        reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, launch_counts()
+
+    def p50_ms(fn, reps: int) -> float:
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    report = {"phase": "lrc", "shard_bytes": SHARD, "nvidia_smi":
+              nvidia_smi(), "configs": {}}
+    by_path = {}
+    for name, k, g, r, source in LRC_CONFIGS:
+        lrc = LocalReconstructionCode(k, g, r)  # device="cuda"
+        ref = LocalReconstructionCode(k, g, r, backend="numpy")
+        gs = k // g
+        data = [rng.integers(0, 256, size=SHARD, dtype=np.uint8)
+                for _ in range(k)]
+        cell0 = lrc.cell(0)
+        two = {cell0[0], cell0[1]}
+        present = [i for i in range(lrc.n) if i not in two]
+        from noise_ec_tpu_torch.matrix import reconstruction_matrix
+
+        global_R = None
+        for cand in itertools.combinations(present, k):
+            try:
+                global_R = reconstruction_matrix(lrc.gf, lrc.G, list(cand),
+                                                 sorted(two))
+                break
+            except np.linalg.LinAlgError:
+                continue
+        routes = {
+            "parity": lrc._dev.route_for(lrc.G[k:]),
+            "local_heal": lrc._dev.route_for(lrc._local_row),
+            "global_reconstruct": lrc._dev.route_for(global_R),
+        }
+        print(json.dumps({"lrc": name, "route_for": routes}), flush=True)
+        cfg = {"k": k, "groups": g, "global_parities": r, "n": lrc.n,
+               "source": source, "route_for": routes}
+
+        enc, by_path[f"{name} encode"] = run_path(lambda: lrc.encode(data))
+        cut = HOST_SLICE if k > 64 else SHARD
+        want = ref.encode([d[:cut] for d in data])
+        check(all(np.array_equal(a[:cut], b) for a, b in zip(enc, want)),
+              f"{name} encode vs the numpy LRC")
+        check(lrc.verify(enc), f"{name} verify")
+
+        def local_heals():
+            for grp in range(g):
+                for i in lrc.cell(grp):
+                    shards = [None if j == i else s
+                              for j, s in enumerate(enc)]
+                    got, dev_tiers = counted(lambda: lrc.reconstruct(shards))
+                    ref_out, ref_tiers = counted(
+                        lambda: ref.reconstruct(shards))
+                    check(np.array_equal(got[i], enc[i])
+                          and np.array_equal(got[i], ref_out[i]),
+                          f"{name} local heal of shard {i}")
+                    check(dev_tiers == ref_tiers == (1, 0, gs, 0),
+                          f"{name} shard {i}: one local heal, {gs} reads "
+                          f"({dev_tiers} vs {ref_tiers})")
+            return g * (gs + 1)
+
+        cfg["local_heals"], by_path[f"{name} local"] = run_path(local_heals)
+        damaged = [None if i in two else s for i, s in enumerate(enc)]
+        (rec, dev_tiers), by_path[f"{name} global"] = run_path(
+            lambda: counted(lambda: lrc.reconstruct(damaged)))
+        ref_rec, ref_tiers = counted(lambda: ref.reconstruct(damaged))
+        check(all(np.array_equal(rec[i], enc[i])
+                  and np.array_equal(rec[i], ref_rec[i]) for i in two),
+              f"{name} two losses in one cell, global reconstruct")
+        check(dev_tiers == ref_tiers and dev_tiers[:2] == (0, 2),
+              f"{name} global tier counters ({dev_tiers} vs {ref_tiers})")
+
+        # repair_many: three stripes, one loss in each of two cells.
+        members, truths = [], []
+        lost_many = [lrc.cell(0)[1], lrc.cell(g - 1)[0]]
+        for b in range(3):
+            stripe = enc if b == 0 else lrc.encode(
+                [rng.integers(0, 256, size=SHARD, dtype=np.uint8)
+                 for _ in range(k)])
+            full = [np.ascontiguousarray(s).tobytes() for s in stripe]
+            truths.append(full)
+            members.append([None if i in lost_many else s
+                            for i, s in enumerate(full)])
+        trusted = [i for i in range(lrc.n) if i not in lost_many]
+        (fixed, dev_tiers), by_path[f"{name} repair_many"] = run_path(
+            lambda: counted(lambda: lrc.repair_many(members, trusted,
+                                                    lost_many)))
+        ref_fixed, ref_tiers = counted(
+            lambda: ref.repair_many(members, trusted, lost_many))
+        check(fixed == ref_fixed and all(
+            out[i] == full[i] for out, full in zip(fixed, truths)
+            for i in lost_many), f"{name} repair_many")
+        check(dev_tiers == ref_tiers == (6, 0, 6 * gs, 0),
+              f"{name} repair_many tiers ({dev_tiers} vs {ref_tiers})")
+        for path in ("encode", "local", "global", "repair_many"):
+            check(sum(by_path[f"{name} {path}"].values()) > 0,
+                  f"{name} {path} launched kernels")
+
+        enc_ms = p50_ms(lambda: lrc.encode(data), 5)
+        one = [None if j == cell0[0] else s for j, s in enumerate(enc)]
+        cfg.update({
+            "encode_p50_ms": enc_ms,
+            "encode_gbps": k * SHARD / enc_ms / 1e6,
+            "local_heal_p50_ms": p50_ms(lambda: lrc.reconstruct(one), 9),
+            "global_reconstruct_p50_ms": p50_ms(
+                lambda: lrc.reconstruct(damaged), 5),
+        })
+        report["configs"][name] = cfg
+        del enc, members, truths, fixed, ref_fixed, data
+    report["by_path"] = by_path
+    names = next(iter(by_path.values()))
+    report["launches"] = {n: sum(c[n] for c in by_path.values())
+                          for n in names}
+    return report
+
+
+def phase_layer_cost(rng) -> dict:
+    """The host layers this slice put around every codec call: RS(4,2) on
+    a 64 KiB message and RS(10,4) at 1 MiB shards, encode and reconstruct
+    p50 on the host clock, the gate, ``device_op``, ``record_kernel`` and
+    the breaker alone, and both cases with the layers on and off in ten
+    alternating pairs in this process
+    (``noise_ec_tpu_torch/tools/layer_cost.py``, which also times any
+    other checkout, such as the parent commit)."""
+    from noise_ec_tpu_torch.tools import layer_cost
+
+    return {
+        "phase": "layer_cost", "nvidia_smi": nvidia_smi(),
+        "rs_4_2_64k": layer_cost.codec_times(rng, 4, 2, 16 << 10, (1, 4),
+                                             200),
+        "rs_10_4_1m": layer_cost.codec_times(rng, 10, 4, SHARD,
+                                             (0, 5, 11), 50),
+        "layers_alone": layer_cost.layers_us(),
+        "layers_ab_rs_4_2_64k": layer_cost.layers_ab(rng, 4, 2, 16 << 10,
+                                                     (1, 4)),
+        "layers_ab_rs_10_4_1m": layer_cost.layers_ab(rng, 10, 4, SHARD,
+                                                     (0, 5, 11), reps=20),
+    }
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3460,8 +3967,10 @@ def main() -> int:
 
     def timed(phase, *phase_args) -> dict:
         t0 = time.monotonic()
+        before = obs_counts()
         report = phase(*phase_args)
         report.setdefault("seconds", time.monotonic() - t0)
+        report["health"] = phase_health(before, report)
         emit(report)
         return report
 
@@ -3479,7 +3988,12 @@ def main() -> int:
     timed(phase_dense_kernels, rng, device, results)
     timed(phase_words16_kernels, rng, device, results, codecs["gf65536"])
     main_path = timed(phase_main_path, rng, codecs)
+    # The breaker's own paths and LRC print their launches on their own
+    # lines; the kernels line keeps the main path's.
+    timed(phase_resilience, rng)
+    timed(phase_lrc, rng)
     timed(phase_times, rng, device, results)
+    timed(phase_layer_cost, rng)
     timed(phase_panel_times, rng, device, results)
     timed(phase_gf16_times, rng, device, results)
     timed(phase_split_times, rng, device, results)

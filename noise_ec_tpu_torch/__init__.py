@@ -4,9 +4,11 @@ The JAX package stays beside it as the reference; this package imports
 neither it nor jax. It covers the Reed-Solomon codec over GF(2^8) and
 GF(2^16) (``codec.ReedSolomon``), the infectious-style ``codec.FEC`` with
 Berlekamp-Welch correction of corrupted shares (``matrix.bw``), batched
-and streaming encode and decode on one device (``parallel``) and the
-hardware check (``tools.hwcheck``), down to hand-written CUDA kernels
-(``ops``, ``csrc``). Entry points run on the card unless the caller passes
+and streaming encode and decode on one device (``parallel``), the
+locally-repairable code (``codec.LocalReconstructionCode``), the hardware
+check (``tools.hwcheck``), the observability core (``obs``) and the codec
+breaker (``resilience``), down to hand-written CUDA kernels (``ops``,
+``csrc``). Entry points run on the card unless the caller passes
 ``device="cpu"``, where each kernel's plain PyTorch version runs instead.
 """
 

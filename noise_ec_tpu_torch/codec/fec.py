@@ -238,12 +238,12 @@ class FEC:
                 nums,
                 [dedup[i] for i in nums],
                 G=self._golden.G,
-                # The reference also consults its codec breaker here;
-                # the port has none yet, and a device error raises.
+                # The device route needs a closed codec breaker
+                # (ops/dispatch.py): while it is open, the decode raises
+                # CodecUnavailableError rather than move to the host.
                 device=(
-                    self._rs._dev
-                    if self.bw_route == "device" and self._rs.device_route_ok()
-                    else None
+                    self._rs.device_route()
+                    if self.bw_route == "device" else None
                 ),
             )
             if res is None:

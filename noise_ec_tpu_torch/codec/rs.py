@@ -19,14 +19,23 @@ Backends:
   caller asks for "cpu", where the kernels' plain PyTorch versions run.
 - "numpy": pure host path (the NumPy field arithmetic).
 
-Unlike the reference, a device failure or an unported route raises: there
-is no codec breaker that degrades to the host (ROADMAP queue 1 ports it,
-with failures surfaced and counted).
+Behind the device backend sits the process-wide codec breaker
+(ops/dispatch.py): a failed batched product is retried once, and a second
+failure trips the breaker and raises ``CodecUnavailableError``, as does
+every product while the breaker is open; each refusal is counted, logged
+and emitted as an event, and a background canary re-closes the breaker.
+Unlike the reference, which serves a tripped product from the host
+arithmetic, a device codec never moves a product to the host. Only a
+``RuntimeError`` the card may get over counts against the breaker; any
+other error (a wrapper or planner refusing its input, a kernel that
+cannot build or launch, an unported route's ``NotImplementedError``, a
+lost CUDA context) propagates as it is and leaves the breaker alone.
 """
 
 from __future__ import annotations
 
 import hashlib
+import logging
 from typing import Optional, Sequence, Union
 
 import numpy as np
@@ -37,6 +46,8 @@ from noise_ec_tpu_torch.matrix.hostmath import host_matvec
 from noise_ec_tpu_torch.matrix.linalg import reconstruction_matrix
 
 Buffer = Union[bytes, bytearray, memoryview, np.ndarray]
+
+_rslog = logging.getLogger("noise_ec_tpu_torch.codec")
 
 # GF(2^16) holds up to 65536 shards; its symbols are little-endian u16
 # pairs of shard bytes.
@@ -109,6 +120,17 @@ class ReedSolomon:
         else:
             raise ValueError(f"unknown backend {backend!r}")
 
+    @property
+    def _breaker(self):
+        """The process-wide device-route breaker (ops/dispatch.py), read
+        at each call so a replaced breaker takes effect; None on the
+        numpy backend."""
+        if self._dev is None:
+            return None
+        from noise_ec_tpu_torch.ops.dispatch import codec_breaker
+
+        return codec_breaker()
+
     # -- internals ---------------------------------------------------------
 
     def _mul(self, M: np.ndarray, D: np.ndarray) -> np.ndarray:
@@ -165,18 +187,78 @@ class ReedSolomon:
 
     def _mul_batch(self, M: np.ndarray, Ds: list) -> list:
         """The coalesced batch body (runs on the bucket leader's thread;
-        every instance sharing the bucket key produces identical bytes).
-        A device error propagates to every member of the batch."""
-        if self._dev is not None:
-            return self._dev.matmul_stripes_many(M, Ds)
-        return [host_matvec(self.gf, M, D) for D in Ds]
+        every instance sharing the bucket key produces identical bytes,
+        and an error reaches every member of the batch)."""
+        if self._dev is None:
+            return [host_matvec(self.gf, M, D) for D in Ds]
+        breaker = self._breaker
+        if not breaker.allow():
+            self._refuse_open()
+        return self._mul_device_many(breaker, M, Ds)
 
-    def device_route_ok(self) -> bool:
-        """Cheap gate for callers choosing a device-resident route up front
-        (FEC's ``bw_route``): True with a device codec. The reference also
-        requires its codec breaker to be closed; the port has no breaker
-        yet (ROADMAP queue 1), and a device failure raises instead."""
-        return self._dev is not None
+    @staticmethod
+    def _refuse_open():
+        """Count a product refused while the breaker is not closed, and
+        raise ``CodecUnavailableError``."""
+        from noise_ec_tpu_torch.ops.dispatch import (
+            CodecUnavailableError,
+            record_codec_refusal,
+        )
+
+        record_codec_refusal("open")
+        raise CodecUnavailableError(
+            "the device codec's breaker is open after repeated dispatch "
+            "failures; the product was not run"
+        )
+
+    def _mul_device_many(self, breaker, M: np.ndarray, Ds: list) -> list:
+        """One batched device dispatch under ``breaker``: retry a failure
+        once in the call, and on the second trip the breaker and raise
+        ``CodecUnavailableError`` from it; the outcome is always reported,
+        so a half-open probe slot is released. An error on the raise list
+        (``ops.dispatch.device_error_raises``) propagates at once, leaves
+        the breaker's state and the counters as they were, and gives back
+        the probe slot if this call held it."""
+        from noise_ec_tpu_torch.ops.dispatch import (
+            CodecUnavailableError,
+            device_error_raises,
+            ensure_codec_prober,
+            record_codec_refusal,
+        )
+
+        last_exc = None
+        for _ in range(2):
+            try:
+                out = self._dev.matmul_stripes_many(M, Ds)
+            except Exception as exc:  # noqa: BLE001 — sorted just below
+                if device_error_raises(exc, self._dev.device):
+                    breaker.release_probe()
+                    raise
+                last_exc = exc
+                continue
+            breaker.record_success()
+            return out
+        breaker.record_failure()
+        ensure_codec_prober(self._dev.device)
+        record_codec_refusal("error")
+        _rslog.warning(
+            "device codec dispatch failed twice (%s); breaker %s — "
+            "refusing device products until the canary re-closes it",
+            last_exc, breaker.state(),
+        )
+        raise CodecUnavailableError(
+            f"device codec dispatch failed twice: {last_exc}"
+        ) from last_exc
+
+    def device_route(self):
+        """The device codec for a caller that runs its own products on it
+        (FEC's ``bw_route="device"``), checked up front: while the breaker
+        is not closed, counts the refusal and raises
+        ``CodecUnavailableError``; never consumes the half-open probe
+        slot. None on the numpy backend."""
+        if self._dev is not None and not self._breaker.closed:
+            self._refuse_open()
+        return self._dev
 
     def _to_sym(self, buf: Buffer, name: str) -> np.ndarray:
         arr = np.frombuffer(buf, dtype=np.uint8) if not isinstance(buf, np.ndarray) else buf

@@ -1,0 +1,322 @@
+"""Device telemetry: dispatch latency, compile tracking, roofline, memory.
+
+Port of ``noise_ec_tpu.obs.device`` for the CUDA card. Three surfaces:
+
+- **Dispatch latency with a compile/execute split** —
+  :func:`device_op` wraps every public ``DeviceCodec`` entry. The codec
+  names the route: a call that has to plan its matrix (a miss in the
+  codec's plan cache; the kernel library is already loaded by the codec's
+  constructor) records as ``route="compile"`` into
+  ``noise_ec_device_op_seconds{kernel,route}`` and feeds
+  ``noise_ec_jit_compiles_total{kernel}`` plus the compile-seconds
+  histogram (the names are the reference's: :data:`~noise_ec_tpu_torch.
+  obs.registry.METRICS` is a copy). A call that finds its plan records as
+  ``route="execute"`` on the device-scale (half-octave, µs-range) buckets.
+  The clock is the host's, as in the reference: an entry that returns
+  host arrays (``matmul_stripes``) times the device round trip, while the
+  words entries return before the card finishes, so their "execute" time
+  is the submit time. No synchronise is added to time them.
+- **Roofline** — :func:`analyze_program` takes the plan's own counts
+  (no compiler cost analysis exists for a hand-written kernel): bytes
+  moved ``4 x (input rows + output rows) x words`` and operations ``raw
+  XOR terms x the words one term XORs`` (a bit plane of a TW-word row is
+  TW / 8 words), and exports per-kernel program-cost and
+  operational-intensity gauges. ``noise_ec_roofline_utilization{kernel}``
+  reads achieved payload bandwidth (cumulative execute bytes / execute
+  seconds) over :func:`peak_hbm_gbps` at collect time, only for entries
+  whose host time covers the device's work (``synced``): a submit time
+  says nothing of the card's bandwidth, so the words entries export none.
+- **Device memory** — :func:`hbm_snapshot` reads
+  ``torch.cuda.memory_allocated`` / ``max_memory_allocated`` /
+  ``mem_get_info``, exported as callback gauges.
+
+Hot-path budget: a warm dispatch pays one perf_counter pair and one
+cached-child histogram observe.
+"""
+
+from __future__ import annotations
+
+import logging
+import threading
+import time
+from typing import Optional
+
+from noise_ec_tpu_torch.obs.registry import Registry, default_registry
+
+__all__ = [
+    "DeviceOpTimer",
+    "analyze_program",
+    "achieved_gbps",
+    "device_op",
+    "hbm_snapshot",
+    "install_hbm_gauges",
+    "maybe_analyze_program",
+    "peak_hbm_gbps",
+    "set_analysis_interval",
+    "set_peak_hbm_gbps",
+]
+
+log = logging.getLogger("noise_ec_tpu_torch.obs")
+
+_lock = threading.Lock()
+# (kernel, route) -> histogram child; kernel -> (counter, hist) children.
+# Default-registry only: a transient Registry must
+# not pin stale children.
+_op_children: dict[tuple[str, str], object] = {}
+_compile_children: dict[str, tuple] = {}
+# kernel -> [execute_bytes_total, execute_seconds_total] for the achieved-
+# bandwidth side of the roofline gauges.
+_op_stats: dict[str, list] = {}
+_gauges_installed = False
+
+# Peak HBM bandwidth of the card the port targets, GB/s: the H100 SXM's
+# 3.35 TB/s, the figure the kernels' bounds use. Override with
+# set_peak_hbm_gbps for another card.
+_PEAK_GBPS = 3350.0
+_peak_override: Optional[float] = None
+
+
+def set_peak_hbm_gbps(gbps: Optional[float]) -> None:
+    """Pin the roofline's peak-bandwidth denominator (None restores the
+    H100 SXM figure)."""
+    global _peak_override
+    _peak_override = gbps
+
+
+def peak_hbm_gbps() -> float:
+    if _peak_override is not None:
+        return _peak_override
+    return _PEAK_GBPS
+
+
+class DeviceOpTimer:
+    """Times one dispatch and records it under its route on exit; a
+    dispatch that raises records nothing.
+
+    A class-based context manager: the generator machinery costs ~3x on
+    a path measured in microseconds.
+    """
+
+    __slots__ = ("entry", "route", "nbytes", "registry", "synced",
+                 "elapsed", "_t0")
+
+    def __init__(self, entry: str, route: str, nbytes: int,
+                 registry: Optional[Registry], synced: bool):
+        if route not in ("compile", "execute"):
+            raise ValueError(f"unknown route {route!r}")
+        self.entry = entry
+        self.route = route
+        self.nbytes = nbytes
+        self.registry = registry
+        self.synced = synced
+        self.elapsed = 0.0
+
+    def __enter__(self) -> "DeviceOpTimer":
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        self.elapsed = time.perf_counter() - self._t0
+        if exc is not None:
+            return False
+        reg = self.registry
+        if reg is None:
+            op = _op_children.get((self.entry, self.route))
+            if op is None:
+                op = _op_children[(self.entry, self.route)] = (
+                    default_registry().histogram(
+                        "noise_ec_device_op_seconds"
+                    ).labels(kernel=self.entry, route=self.route)
+                )
+        else:
+            op = reg.histogram("noise_ec_device_op_seconds").labels(
+                kernel=self.entry, route=self.route
+            )
+        op.observe(self.elapsed)
+        if self.route == "compile":
+            self._record_compile(reg)
+        elif self.synced:
+            with _lock:
+                st = _op_stats.get(self.entry)
+                if st is None:
+                    st = _op_stats[self.entry] = [0.0, 0.0]
+                    _install_utilization_gauge(self.entry, reg)
+                st[0] += self.nbytes
+                st[1] += self.elapsed
+        return False
+
+    def _record_compile(self, reg: Optional[Registry]) -> None:
+        if reg is None:
+            pair = _compile_children.get(self.entry)
+            if pair is None:
+                r = default_registry()
+                pair = _compile_children[self.entry] = (
+                    r.counter("noise_ec_jit_compiles_total").labels(
+                        kernel=self.entry
+                    ),
+                    r.histogram("noise_ec_jit_compile_seconds").labels(
+                        kernel=self.entry
+                    ),
+                )
+        else:
+            pair = (
+                reg.counter("noise_ec_jit_compiles_total").labels(
+                    kernel=self.entry
+                ),
+                reg.histogram("noise_ec_jit_compile_seconds").labels(
+                    kernel=self.entry
+                ),
+            )
+        pair[0].add(1)
+        pair[1].observe(self.elapsed)
+
+
+def device_op(entry: str, route: str, nbytes: int = 0,
+              registry: Optional[Registry] = None, *,
+              synced: bool = True) -> DeviceOpTimer:
+    """``with device_op("matmul_stripes", route, nbytes):`` around one
+    DeviceCodec dispatch; ``route`` is "compile" for a call that plans
+    its matrix, else "execute". ``synced=False`` marks an entry that
+    returns before the card finishes: it is timed like any other, but
+    feeds no roofline gauge. Also installs the HBM gauges on first use so
+    any process that dispatches exports memory headroom."""
+    install_hbm_gauges(registry)
+    return DeviceOpTimer(entry, route, nbytes, registry, synced)
+
+
+# ------------------------------------------------------------------ roofline
+
+
+def achieved_gbps(entry: str) -> float:
+    """Cumulative execute-route payload bandwidth for one synced kernel
+    entry (0.0 until a warm dispatch lands)."""
+    with _lock:
+        st = _op_stats.get(entry)
+    if not st or st[1] <= 0:
+        return 0.0
+    return st[0] / st[1] / 1e9
+
+
+def _install_utilization_gauge(entry: str,
+                               registry: Optional[Registry]) -> None:
+    reg = registry if registry is not None else default_registry()
+    try:
+        reg.gauge("noise_ec_roofline_utilization").set_callback(
+            lambda e=entry: achieved_gbps(e) / max(peak_hbm_gbps(), 1e-9),
+            kernel=entry,
+        )
+    except Exception:  # noqa: BLE001 — a gauge must not fail a dispatch
+        log.debug("roofline gauge install failed for %s", entry)
+
+
+# Dispatch-time analysis rate limit: one analysis per kernel entry per
+# window keeps the gauges fresh without riding geometry churn.
+_ANALYSIS_INTERVAL_S = 60.0
+_last_analysis: dict[str, float] = {}
+
+
+def set_analysis_interval(seconds: float) -> None:
+    """Min seconds between dispatch-time cost analyses per kernel entry
+    (tests shrink it; 0 analyzes every compile)."""
+    global _ANALYSIS_INTERVAL_S
+    _ANALYSIS_INTERVAL_S = seconds
+
+
+def maybe_analyze_program(entry: str, xor_terms: int, in_rows: int,
+                          out_rows: int, words: int,
+                          registry: Optional[Registry] = None
+                          ) -> Optional[dict]:
+    """Rate-limited :func:`analyze_program` — the dispatch-path entry.
+    Returns None when skipped by the per-entry interval."""
+    now = time.monotonic()
+    with _lock:
+        last = _last_analysis.get(entry)
+        if last is not None and now - last < _ANALYSIS_INTERVAL_S:
+            return None
+        _last_analysis[entry] = now
+    return analyze_program(entry, xor_terms, in_rows, out_rows, words,
+                           registry=registry)
+
+
+def analyze_program(entry: str, xor_terms: int, in_rows: int,
+                    out_rows: int, words: int,
+                    registry: Optional[Registry] = None) -> Optional[dict]:
+    """The plan's own cost counts for one product, exported as per-kernel
+    program-cost gauges (the reference reads XLA's ``cost_analysis``; a
+    hand-written kernel has none).
+
+    ``xor_terms`` is the matrix's raw two-input XOR count over its GF(2)
+    bit network (``DeviceCodec._xor_cost_for``); ``in_rows`` / ``out_rows``
+    the byte rows in and out and ``words`` the int32 words a byte row
+    holds. Bytes: ``4 x (in_rows + out_rows) x words``, each input read
+    once and each output written once. Operations: ``xor_terms x words /
+    8`` 32-bit XORs (one term XORs a bit plane, and a bit plane of a
+    ``words``-word row is ``words / 8`` words). Returns ``{"flops",
+    "bytes", "intensity"}``, or None when the counts are unusable; never
+    raises — this is telemetry."""
+    try:
+        flops = float(xor_terms) * float(words) / 8.0
+        nbytes = 4.0 * (int(in_rows) + int(out_rows)) * float(words)
+        intensity = flops / nbytes if nbytes > 0 else 0.0
+        reg = registry if registry is not None else default_registry()
+        reg.gauge("noise_ec_device_program_flops").labels(
+            kernel=entry
+        ).set(flops)
+        reg.gauge("noise_ec_device_program_bytes").labels(
+            kernel=entry
+        ).set(nbytes)
+        reg.gauge("noise_ec_roofline_intensity").labels(
+            kernel=entry
+        ).set(intensity)
+    except Exception as exc:  # noqa: BLE001 — telemetry must not raise
+        log.debug("program analysis failed for %s: %s", entry, exc)
+        return None
+    return {"flops": flops, "bytes": nbytes, "intensity": intensity}
+
+
+# ------------------------------------------------------------------- HBM
+
+
+def hbm_snapshot() -> dict:
+    """Device memory of the current CUDA device, in bytes:
+    ``live_bytes`` (``torch.cuda.memory_allocated``: what live tensors
+    hold), ``peak_bytes`` (``max_memory_allocated``), ``limit_bytes``
+    (the card's total, ``mem_get_info``) and ``bytes_in_use`` (total less
+    free: every process's use of the card). Empty dict without a CUDA
+    device, as the reference returns one without jax; never raises."""
+    try:
+        import torch
+
+        if not torch.cuda.is_available():
+            return {}
+        live = int(torch.cuda.memory_allocated())
+        peak = int(torch.cuda.max_memory_allocated())
+        free, total = torch.cuda.mem_get_info()
+    except Exception:  # noqa: BLE001 — telemetry must not raise
+        return {}
+    return {"live_bytes": live, "peak_bytes": peak,
+            "limit_bytes": int(total), "bytes_in_use": int(total - free)}
+
+
+def install_hbm_gauges(registry: Optional[Registry] = None) -> None:
+    """Install the collect-time HBM callback gauges (idempotent for the
+    default registry; explicit registries always install)."""
+    global _gauges_installed
+    if registry is None:
+        with _lock:
+            if _gauges_installed:
+                return
+            _gauges_installed = True
+    reg = registry if registry is not None else default_registry()
+    try:
+        reg.gauge("noise_ec_hbm_live_bytes").set_callback(
+            lambda: hbm_snapshot().get("live_bytes", 0)
+        )
+        reg.gauge("noise_ec_hbm_peak_bytes").set_callback(
+            lambda: hbm_snapshot().get("peak_bytes", 0)
+        )
+        reg.gauge("noise_ec_hbm_limit_bytes").set_callback(
+            lambda: hbm_snapshot().get("limit_bytes", 0)
+        )
+    except Exception:  # noqa: BLE001 — gauge install must not fail callers
+        log.debug("hbm gauge install failed")

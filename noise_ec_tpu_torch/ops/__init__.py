@@ -22,7 +22,8 @@ budgets), in hand-written CUDA kernels for the H100 (``csrc/``).
   kernel operand
 - ``dispatch`` — ``DeviceCodec``: per-matrix plans, the words/stripes
   entry points, and the error-correcting decode's syndrome and decode1
-  entries
+  entries; the device gate every entry is admitted through, and the codec
+  breaker the codecs consult around each product
 - ``coalesce`` — batching of concurrent same-shape requests
 
 Each kernel module keeps a ``LAUNCHES`` count of its kernel launches.

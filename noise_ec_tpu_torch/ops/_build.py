@@ -15,7 +15,10 @@ own.
 
 Every C entry returns ``cudaGetLastError()`` after its launch; :func:`launch`
 raises on anything but 0, since a refused launch never runs and no later
-synchronise reports it.
+synchronise reports it. Both failures have a type of their own,
+:class:`KernelBuildError` and :class:`KernelLaunchError` (each a
+``RuntimeError``): the codec breaker (ops/dispatch.py) lets them
+propagate as they are, neither retried nor counted as a breaker failure.
 """
 
 from __future__ import annotations
@@ -72,6 +75,16 @@ _PROBE_SIGNATURES = {
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _probe_lib: Optional[ctypes.CDLL] = None
+
+
+class KernelBuildError(RuntimeError):
+    """``nvcc`` is missing, or a compile or link step failed."""
+
+
+class KernelLaunchError(RuntimeError):
+    """A kernel's C entry returned a CUDA error: the launch was refused."""
+
+
 # What the build of each source printed (nvcc -Xptxas=-v: registers,
 # shared memory and spills per kernel), for chip_smoke.py.
 build_log: dict[str, str] = {}
@@ -85,7 +98,7 @@ def nvcc_path() -> str:
     ):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError(
+    raise KernelBuildError(
         "nvcc not found (PATH, $CUDA_HOME/bin): the CUDA kernels cannot be "
         "built"
     )
@@ -138,7 +151,7 @@ def build(sources: tuple = SOURCES,
     for obj in objs.values():
         obj.unlink(missing_ok=True)
     if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        raise KernelBuildError("nvcc failed:\n" + "\n".join(failed))
     return target
 
 
@@ -183,7 +196,7 @@ def launch(fn: str, like, *args, lib: Optional[ctypes.CDLL] = None) -> None:
         rc = getattr(lib, fn)(*args, stream)
     if rc != 0:
         msg = library().ec_error_string(rc).decode()
-        raise RuntimeError(f"{fn}: CUDA error {rc} ({msg})")
+        raise KernelLaunchError(f"{fn}: CUDA error {rc} ({msg})")
 
 
 def ptr(t) -> ctypes.c_void_p:

@@ -20,8 +20,8 @@ Flush policy (admission and batching share one queue):
 
 The batch function runs on the leader's thread; an exception propagates
 to every member. Counters are plain attributes (``batches``,
-``flush_reasons``, ``batch_sizes``); the reference's metrics registry is
-not ported.
+``flush_reasons``, ``batch_sizes``); the reference's
+``noise_ec_coalesce_*`` families are not recorded.
 """
 
 from __future__ import annotations
@@ -251,16 +251,25 @@ class CoalescingDispatcher:
 
     def _linger_budget(self) -> float:
         """The bounded latency budget: the base linger, scaled by the
-        device-gate queue depth, and by ``background_linger_x`` for a
-        background-lane leader under pressure. The gate is not ported yet
-        (ROADMAP queue 1), so its depth reads 0 and the budget is the base
-        linger."""
+        device-gate queue depth (a deep gate queue means the batch would
+        block at admission anyway, so a longer linger costs nothing).
+        Background-lane leaders under pressure linger
+        ``background_linger_x`` longer still — background batches YIELD
+        the contended gate to live work (collecting bigger batches while
+        they wait), and say so with a ``qos.linger`` event."""
         if self.linger_seconds <= 0:
             return 0.0
-        depth = 0
+        from noise_ec_tpu_torch.ops.dispatch import device_gate
+
+        gate = device_gate()
+        depth = gate.in_flight + gate.waiters
         budget = max(self.linger_seconds, self.linger_seconds * depth)
         if depth > 0 and current_qos()[0] == "background":
             budget *= self.background_linger_x
+            from noise_ec_tpu_torch.obs.events import event
+
+            event("qos.linger", lane="background", depth=depth,
+                  budget_ms=round(budget * 1e3, 3))
         return budget
 
     def _lead(self, bucket: _Bucket, linger: float,

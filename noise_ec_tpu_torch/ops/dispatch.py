@@ -32,9 +32,11 @@ K6 at m = 16 -> K7 -> K6.
 
 The codec runs on ``device`` ("cuda" unless the caller asks for "cpu").
 On the CPU every wrapper takes its kernel's plain PyTorch version; on the
-card it launches the kernel or raises. Nothing falls back: a build or
-launch error raises, and so does the one route the reference has no kernel
-for either, an "mxu" matrix on the interleaved GF(2^16) words entry.
+card it launches the kernel or raises. ``DeviceCodec(device="cuda")``
+loads the kernel library when it is built, so a build failure raises
+from the constructor. Within a call nothing falls back: a build or launch
+error raises, and so does the one route the reference has no kernel for
+either, an "mxu" matrix on the interleaved GF(2^16) words entry.
 
 The error-correcting decode (matrix/bw.py, codec/fec.py) reaches the card
 through :meth:`DeviceCodec.syndrome_stripes` and the decode1 fold
@@ -42,16 +44,42 @@ through :meth:`DeviceCodec.syndrome_stripes` and the decode1 fold
 byte-sliced GF(2^16) twin): each is one generator-shaped product on the
 routes above.
 
-Left out for now (ROADMAP queue 1): the codec breaker and its prober, the
-``DeviceGate`` admission queue, ``obs/device.py`` telemetry, the mesh tier,
-and buffer donation
-(``matmul_words_batch(donate=True)``: the streaming window keeps a ring of
-device buffers instead, parallel/streaming.py).
+Around the codec, as in the reference:
+
+- the **codec breaker** (:func:`codec_breaker`), which the codecs
+  (codec/rs.py) consult around each batched product: a failure is retried
+  once in the call, a second trips the breaker and the call raises
+  :class:`CodecUnavailableError`, as does every call while it is open,
+  each counted (``noise_ec_codec_refused_total{reason}``) and logged as a
+  ``codec.refused`` event; a background prober re-closes it with a canary
+  product on the device that tripped it. Unlike the reference, no product
+  ever moves to the host arithmetic: a failed product raises, so a shape
+  the kernels refuse can never run on the host unseen. Only a
+  ``RuntimeError`` the card may get over counts against the breaker;
+  every other error (:func:`device_error_raises`: a refused input, a
+  build or launch error, an unported route, a lost CUDA context)
+  propagates as it is and leaves the breaker alone;
+- the **device gate** (:class:`DeviceGate`): bounded admission with QoS
+  lanes, acquired once by every public entry of :class:`DeviceCodec`;
+- **telemetry**: each public entry runs inside ``device_op`` (obs/device.py)
+  after ``record_kernel`` (obs/profiling.py). As in the reference, the
+  entries that are one product of another entry take that entry's gate
+  slot and telemetry window: ``matmul_words`` and ``decode1_words``
+  through ``matmul_words_batch`` ("matmul_words"), ``syndrome_stripes``
+  through ``matmul_stripes``, ``decode1_words_bytesliced`` through
+  ``matmul_words_bytesliced``.
+
+Left out for now (ROADMAP queue 1 item 6): the mesh tier, and buffer
+donation (``matmul_words_batch(donate=True)``: the streaming window keeps a
+ring of device buffers instead, parallel/streaming.py).
 """
 
 from __future__ import annotations
 
+import logging
 import threading
+import time
+from collections import deque
 from typing import Optional
 
 import numpy as np
@@ -60,6 +88,16 @@ import torch.nn.functional as F
 
 from noise_ec_tpu_torch.gf.bitmatrix import expand_generator_bits
 from noise_ec_tpu_torch.gf.field import GF, GF256, GF65536
+from noise_ec_tpu_torch.obs.device import device_op, maybe_analyze_program
+from noise_ec_tpu_torch.obs.events import event
+from noise_ec_tpu_torch.obs.profiling import record_kernel
+from noise_ec_tpu_torch.obs.registry import default_registry
+from noise_ec_tpu_torch.ops._build import (
+    KernelBuildError,
+    KernelLaunchError,
+    library,
+)
+from noise_ec_tpu_torch.ops.coalesce import QOS_LANES, current_qos
 from noise_ec_tpu_torch.ops.fused import (
     fused_encode_words,
     fused_plan,
@@ -93,6 +131,432 @@ from noise_ec_tpu_torch.ops.pack import (
 from noise_ec_tpu_torch.ops.panel import gf2_matmul_panel_chain, panel_plan
 
 _FIELDS = {"gf256": GF256, "gf65536": GF65536}
+
+log = logging.getLogger("noise_ec_tpu_torch.ops")
+
+
+# ---------------------------------------------------------- codec breaker
+#
+# The card is ONE process-wide resource: when a dispatch fails (an
+# allocator out of memory, an injected fault), every codec sharing it will
+# fail the same way — so the circuit breaker guarding the device route is
+# process-wide too. The codecs (codec/rs.py _mul_batch) consult it around
+# each batched product: a failure is retried once in the call, a second
+# trips the breaker and raises CodecUnavailableError, and every call while
+# it is open raises the same at once instead of queueing more work on a
+# failing card (noise_ec_codec_refused_total{reason}). A background prober
+# re-tries a canary product on the breaker's widening half-open schedule
+# and closes it when the device answers correctly again
+# (noise_ec_codec_circuit_state 1 -> 2 -> 0).
+#
+# The reference serves a tripped product from the host arithmetic
+# instead. The port never does: a product on the card runs its kernels or
+# raises, so a matrix or shape the kernels refuse cannot slide onto the
+# host for good while the canary keeps re-closing the breaker.
+#
+# Only a RuntimeError the card may get over (an allocator out of memory,
+# a fault injected by a test) is retried and counted as a breaker failure.
+# Everything else bypasses the breaker (device_error_raises): an error
+# that is not a RuntimeError is a refusal the same call would meet again
+# (a wrapper or planner rejecting its input, such as a plan that does not
+# fit or an index past 32 bits); a kernel that cannot be built or whose
+# launch was refused is a bug; an unported route raises by the port's
+# rule; and a CUDA error that leaves the context unusable would keep the
+# half-open probe from ever closing the breaker. Those propagate as they
+# are, leave the breaker as they found it, and give back a half-open probe
+# slot the caller held.
+
+_codec_breaker = None
+_codec_breaker_lock = threading.Lock()
+_refused_children: dict[str, object] = {}
+_prober_thread: Optional[threading.Thread] = None
+# The device the canary runs on: the one whose failure last tripped the
+# breaker. One canary codec per device.
+_probe_target: Optional[torch.device] = None
+_probe_codecs: dict[str, "DeviceCodec"] = {}
+
+# RuntimeErrors never retried, never a breaker failure (module comment).
+RAISES = (KernelBuildError, KernelLaunchError, NotImplementedError)
+
+
+class CodecUnavailableError(RuntimeError):
+    """A product the device codec refused: its dispatch failed twice and
+    tripped the codec breaker (chained to the last failure), or the
+    breaker was open. Nothing ran in its place; retry once the breaker
+    closes (``codec_breaker().closed``)."""
+
+
+def _new_codec_breaker(**kwargs):
+    global _codec_breaker
+    from noise_ec_tpu_torch.resilience.breakers import CircuitBreaker
+
+    _codec_breaker = CircuitBreaker(
+        failure_threshold=kwargs.pop("failure_threshold", 1), **kwargs
+    )
+    default_registry().gauge("noise_ec_codec_circuit_state").set_callback(
+        lambda: _codec_breaker.state_code()
+    )
+    return _codec_breaker
+
+
+def codec_breaker():
+    """The process-wide device-route breaker (lazy singleton). A failure
+    threshold of 1: the in-call retry already absorbed one failure, so a
+    second is a tripped route."""
+    with _codec_breaker_lock:
+        if _codec_breaker is None:
+            _new_codec_breaker(reset_timeout=5.0, max_reset_timeout=60.0)
+        return _codec_breaker
+
+
+def configure_codec_breaker(**kwargs):
+    """Replace the process breaker (tests shrink the timeouts; a fresh
+    instance also resets state). Returns the new breaker."""
+    with _codec_breaker_lock:
+        return _new_codec_breaker(**kwargs)
+
+
+def record_codec_refusal(reason: str) -> None:
+    """Count one product the device codec refused (``reason``: "error"
+    for the call that tripped the breaker, "open" for a call refused
+    while it is not closed) and emit the ``codec.refused`` warn event."""
+    child = _refused_children.get(reason)
+    if child is None:
+        child = _refused_children[reason] = default_registry().counter(
+            "noise_ec_codec_refused_total"
+        ).labels(reason=reason)
+    child.add(1)
+    event("codec.refused", "warn", reason=reason)
+
+
+def device_error_raises(exc: BaseException, device: torch.device) -> bool:
+    """True when ``exc``, raised by a product on ``device``, must
+    propagate as it is, bypassing the retry and the breaker: anything but
+    a ``RuntimeError`` (a refused input: ``ValueError`` from a wrapper or
+    a planner, an ``AssertionError``), a :data:`RAISES` type, or any
+    error after which the CUDA context is unusable — a
+    ``torch.cuda.synchronize()`` that raises again (an illegal address,
+    an unspecified launch failure, a misaligned address: sticky errors)."""
+    if not isinstance(exc, RuntimeError) or isinstance(exc, RAISES):
+        return True
+    if device.type != "cuda":
+        return False
+    try:
+        torch.cuda.synchronize(device)
+    except Exception:  # noqa: BLE001 — any error here means the context is gone
+        return True
+    return False
+
+
+def _probe_device(device: torch.device) -> None:
+    """Canary: RS(4,2)'s parity product on a 4 x 64-byte stripe through
+    ``matmul_stripes_many`` (the route an RS(4,2) encode takes), checked
+    against the host arithmetic. Raises while the device route is still
+    broken. Runs only on the prober's thread."""
+    from noise_ec_tpu_torch.matrix.generators import generator_matrix
+    from noise_ec_tpu_torch.matrix.hostmath import host_matvec
+
+    codec = _probe_codecs.get(str(device))
+    if codec is None:
+        codec = _probe_codecs[str(device)] = DeviceCodec(device=device)
+    M = generator_matrix(codec.gf, 4, 6, "cauchy")[4:]
+    D = (np.arange(4 * 64) % 251).astype(np.uint8).reshape(4, 64)
+    out = codec.matmul_stripes_many(M, [D])[0]
+    if not np.array_equal(out, host_matvec(codec.gf, M, D)):
+        raise RuntimeError("codec probe produced wrong bytes")
+
+
+def ensure_codec_prober(device) -> None:
+    """Run the background half-open prober on ``device`` while the breaker
+    is not closed (idempotent; the thread exits once it closes)."""
+    global _prober_thread, _probe_target
+    with _codec_breaker_lock:
+        _probe_target = torch.device(device)
+        if _prober_thread is not None and _prober_thread.is_alive():
+            return
+        _prober_thread = threading.Thread(
+            target=_probe_loop, name="noise-ec-codec-probe", daemon=True
+        )
+        _prober_thread.start()
+
+
+def _probe_loop() -> None:
+    while True:
+        br = codec_breaker()
+        if br.closed:
+            return
+        remaining = br.open_remaining()
+        if remaining > 0:
+            time.sleep(min(remaining, 0.05))
+            continue
+        if not br.allow():  # another caller holds the half-open probe
+            time.sleep(0.02)
+            continue
+        try:
+            _probe_device(_probe_target)
+        except Exception as exc:  # noqa: BLE001 — any failure keeps it open
+            br.record_failure()
+            log.warning("codec device probe failed: %s (breaker re-opened "
+                        "for %.1fs)", exc, br.open_remaining())
+        else:
+            br.record_success()
+            log.info("codec device probe succeeded; device route restored")
+            event("codec.restore", route="device")
+            return
+
+
+# --------------------------------------------------- device dispatch gate
+#
+# The card is one shared resource fed from many producer threads (the
+# coalescer's leaders, the streaming encoder, the FEC decode, and later the
+# host layers). Unbounded, a burst of concurrent dispatches queues
+# arbitrarily deep work while every producer keeps allocating host and
+# device buffers for payloads that cannot run yet. The gate is the bounded
+# DEVICE QUEUE: at most ``capacity`` dispatches are in flight; further
+# callers BLOCK until a slot frees. Waits are visible as the
+# noise_ec_backpressure_* family (layer="device"); a wait past
+# ``wait_timeout`` proceeds anyway — the gate is a governor, not a
+# deadlock. A slot is held while a public entry queues its work and is
+# released when the entry returns: the words entries return before the
+# card finishes, and no synchronise is added to hold the slot longer.
+#
+# QoS lanes: a contended gate does not drain FIFO. Waiters queue per
+# (lane, tenant) — from the ambient ``qos_lane`` context the admitting
+# layer set (ops/coalesce.py) — and freed slots are HANDED to a queued
+# ticket in release() rather than raced for, so the pick order below is
+# the actual service order:
+#
+# - live beats background: a repair/scrub burst queued in the background
+#   lane cannot delay interactive work behind it;
+# - starvation floor: background still gets >= 1 of every
+#   ``background_floor`` contended grants, so a saturating live tenant
+#   cannot park background work forever;
+# - inside a lane, tenants share by smooth weighted round-robin on their
+#   ``weight``.
+#
+# The gate is acquired only at entry points that never nest: a public
+# DeviceCodec entry calls only the private helpers below it (_stripes,
+# _byte_rows, _words_batch, _words16), never another public entry, so a
+# capacity-1 gate cannot deadlock on itself.
+
+
+class _Ticket:
+    """One queued waiter; ``granted`` flips under the gate lock when
+    release() hands it the freed slot (in_flight already charged)."""
+
+    __slots__ = ("granted",)
+
+    def __init__(self):
+        self.granted = False
+
+
+class _TenantQueue:
+    """One tenant's FIFO inside a lane + its smooth-WRR credit."""
+
+    __slots__ = ("weight", "current", "tickets")
+
+    def __init__(self, weight: int):
+        self.weight = max(1, int(weight))
+        self.current = 0
+        self.tickets: "deque[_Ticket]" = deque()
+
+
+class DeviceGate:
+    """Bounded admission to the device dispatch path (module comment).
+
+    ``with gate:`` around a dispatch; reentrant nesting is NOT supported
+    (DeviceCodec acquires only at its public entry points, which never
+    nest). Tests shrink ``capacity`` to pin the blocking behavior and
+    ``background_floor`` to pin the lane arbitration.
+    """
+
+    def __init__(
+        self,
+        capacity: int = 8,
+        wait_timeout: float = 120.0,
+        background_floor: int = 8,
+    ):
+        if capacity < 1:
+            raise ValueError(f"capacity must be >= 1, got {capacity}")
+        if background_floor < 2:
+            raise ValueError(
+                f"background_floor must be >= 2, got {background_floor}"
+            )
+        self.capacity = capacity
+        self.wait_timeout = wait_timeout
+        self.background_floor = background_floor
+        self._cv = threading.Condition()
+        self.in_flight = 0
+        self.waiters = 0
+        self.waits = 0  # local mirror of the counter (tests, reports)
+        # lane -> tenant -> _TenantQueue; lanes fixed, tenant queues are
+        # created on first wait and deleted when drained (bounds memory
+        # and resets a departed tenant's WRR credit).
+        self._queues: dict[str, dict[str, _TenantQueue]] = {
+            lane: {} for lane in QOS_LANES
+        }
+        self._lane_waiters = {lane: 0 for lane in QOS_LANES}
+        # Contended live grants since the last background grant (or
+        # since background stopped waiting) — the starvation-floor odometer.
+        self._live_streak = 0
+        reg = default_registry()
+        self._waits_total = reg.counter(
+            "noise_ec_backpressure_waits_total"
+        ).labels(layer="device")
+        self._wait_hist = reg.histogram(
+            "noise_ec_backpressure_wait_seconds"
+        ).labels(layer="device")
+        reg.gauge("noise_ec_backpressure_queue_depth").set_callback(
+            lambda: self.in_flight + self.waiters, layer="device"
+        )
+        depth_gauge = reg.gauge("noise_ec_lane_queue_depth")
+        for lane in QOS_LANES:
+            depth_gauge.set_callback(
+                lambda lane=lane: self._lane_waiters[lane], lane=lane
+            )
+        self._grants = {
+            lane: reg.counter("noise_ec_lane_grants_total").labels(lane=lane)
+            for lane in QOS_LANES
+        }
+
+    def acquire(self) -> None:
+        lane, tenant, weight = current_qos()
+        with self._cv:
+            if self.in_flight < self.capacity and not self._queued():
+                self.in_flight += 1
+                self._grants[lane].add(1)
+                return
+            ticket = _Ticket()
+            q = self._queues[lane].get(tenant)
+            if q is None:
+                q = self._queues[lane][tenant] = _TenantQueue(weight)
+            else:
+                q.weight = max(1, int(weight))  # latest policy wins
+            q.tickets.append(ticket)
+            self._lane_waiters[lane] += 1
+            self.waits += 1
+            self._waits_total.add(1)
+            t0 = time.monotonic()
+            deadline = t0 + self.wait_timeout
+            self.waiters += 1
+            try:
+                while not ticket.granted:
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        break  # governor, not a deadlock: proceed
+                    self._cv.wait(min(remaining, 0.5))
+            finally:
+                self.waiters -= 1
+                if not ticket.granted:
+                    # Governor escape: leave the queue and barge. The
+                    # ungranted ticket is still queued (grants happen
+                    # under this same lock), so discard is exact.
+                    self._discard(lane, tenant, ticket)
+                    self.in_flight += 1
+                    self._grants[lane].add(1)
+            self._wait_hist.observe(time.monotonic() - t0)
+
+    def release(self) -> None:
+        with self._cv:
+            self.in_flight -= 1
+            self._grant_free_slots()
+            self._cv.notify_all()
+
+    # ------------------------------------------------ queue internals
+
+    def _queued(self) -> bool:
+        return any(self._lane_waiters[lane] for lane in QOS_LANES)
+
+    def _discard(self, lane: str, tenant: str, ticket: _Ticket) -> None:
+        q = self._queues[lane].get(tenant)
+        if q is None:
+            return
+        try:
+            q.tickets.remove(ticket)
+        except ValueError:
+            return
+        self._lane_waiters[lane] -= 1
+        if not q.tickets:
+            del self._queues[lane][tenant]
+
+    def _grant_free_slots(self) -> None:
+        """Hand every free slot to the next queued ticket (lock held)."""
+        while self.in_flight < self.capacity:
+            picked = self._pick()
+            if picked is None:
+                return
+            lane, ticket = picked
+            ticket.granted = True
+            self.in_flight += 1
+            self._grants[lane].add(1)
+            if lane == "background":
+                self._live_streak = 0
+            elif self._lane_waiters["background"]:
+                self._live_streak += 1
+                # Rate-limited by the event log's per-name bucket; the
+                # streak odometer says how starved background is.
+                event("qos.preempt", lane=lane, streak=self._live_streak,
+                      background_waiting=self._lane_waiters["background"])
+            else:
+                self._live_streak = 0
+
+    def _pick(self) -> Optional[tuple[str, _Ticket]]:
+        live = self._queues["live"]
+        background = self._queues["background"]
+        if background and (
+            not live or self._live_streak >= self.background_floor - 1
+        ):
+            lane = "background"
+        elif live:
+            lane = "live"
+        else:
+            return None
+        queues = self._queues[lane]
+        # Smooth weighted round-robin (each queue's credit grows by its
+        # weight; the max-credit queue serves and repays the total), so
+        # grants interleave proportionally instead of bursting.
+        total = sum(q.weight for q in queues.values())
+        best_name = best = None
+        for name, q in queues.items():
+            q.current += q.weight
+            if best is None or q.current > best.current:
+                best_name, best = name, q
+        best.current -= total
+        ticket = best.tickets.popleft()
+        self._lane_waiters[lane] -= 1
+        if not best.tickets:
+            del queues[best_name]
+        return lane, ticket
+
+    def __enter__(self) -> "DeviceGate":
+        self.acquire()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        self.release()
+        return False
+
+
+_device_gate: Optional[DeviceGate] = None
+_device_gate_lock = threading.Lock()
+
+
+def device_gate() -> DeviceGate:
+    """The process-wide device dispatch gate (lazy singleton)."""
+    global _device_gate
+    with _device_gate_lock:
+        if _device_gate is None:
+            _device_gate = DeviceGate()
+        return _device_gate
+
+
+def configure_device_gate(**kwargs) -> DeviceGate:
+    """Replace the process gate (tests shrink capacity; a fresh instance
+    also resets occupancy). Returns the new gate."""
+    global _device_gate
+    with _device_gate_lock:
+        _device_gate = DeviceGate(**kwargs)
+        return _device_gate
 
 # Whole-network factoring is super-linear in the network's terms and runs
 # on the host once per matrix (RS(50,20), ~32k raw XORs, takes seconds in
@@ -247,6 +711,9 @@ class DeviceCodec:
                 )
             if self.device.index is None:
                 self.device = torch.device("cuda", torch.cuda.current_device())
+            # Build (or find) and load the kernels now: a build failure
+            # raises here, before any breaker is consulted.
+            library()
         elif self.device.type != "cpu":
             raise ValueError(f"unsupported device {device!r}")
         self.field = field
@@ -410,6 +877,28 @@ class DeviceCodec:
                 f"words on {words.device}, codec on {self.device}"
             )
 
+    def _route(self, M: np.ndarray, tier: Optional[str]) -> str:
+        """The ``device_op`` route of a call on ``M``: "compile" when it
+        will plan ``M`` (a miss in the plan cache), else "execute"."""
+        M = np.ascontiguousarray(np.asarray(M, dtype=self.gf.dtype))
+        planned = (self._key(M), tier) in self._plan_cache
+        return "execute" if planned else "compile"
+
+    def _admit(self, entry: str, M: np.ndarray, tier: Optional[str],
+               nbytes: int) -> str:
+        """Count one public-entry call (obs/profiling.py) and return its
+        ``device_op`` route (:meth:`_route`)."""
+        record_kernel(entry, nbytes)
+        return self._route(M, tier)
+
+    def _analyze(self, dt, M: np.ndarray, rows_in: int, rows_out: int,
+                 words: int) -> None:
+        """On a key's first call, export the product's plan-derived cost
+        (obs/device.py analyze_program) over byte rows of ``words``."""
+        if dt.route == "compile":
+            maybe_analyze_program(dt.entry, self._xor_cost_for(M),
+                                  rows_in, rows_out, words)
+
     def matmul_words(self, M: np.ndarray, words: torch.Tensor, *,
                      tier: Optional[str] = None) -> torch.Tensor:
         """(k, TW) int32 words on the codec's device -> (r, TW) int32.
@@ -428,12 +917,24 @@ class DeviceCodec:
         On a GF(2^16) codec the words hold interleaved u16 symbols and run
         the kernels at 16 planes a symbol (module doc), ``tier`` as on byte
         rows; an "mxu" matrix raises NotImplementedError there, as in the
-        reference: K8 takes byte rows (:meth:`matmul_words_bytesliced`)."""
+        reference: K8 takes byte rows (:meth:`matmul_words_bytesliced`).
+
+        Returns once the work is queued on the card: the ``device_op``
+        time of this entry is the submit time."""
         M = np.asarray(M)
         self._check_words(words, M.shape[1])
-        if self.sym_bytes == 1:
-            return self._byte_rows(M, words, tier)
-        return self._words16(M, words, tier)
+        nbytes = 4 * words.numel()
+        route = self._admit("matmul_words", M, tier, nbytes)
+        with device_gate(), device_op("matmul_words", route, nbytes,
+                                      synced=False) as dt:
+            if self.sym_bytes == 1:
+                out = self._byte_rows(M, words, tier)
+            else:
+                out = self._words16(M, words, tier)
+            B, k, TW = words.shape
+            s = self.sym_bytes
+            self._analyze(dt, M, B * s * k, B * s * M.shape[0], TW // s)
+            return out
 
     def matmul_words_bytesliced(self, M: np.ndarray,
                                 words: torch.Tensor) -> torch.Tensor:
@@ -448,7 +949,14 @@ class DeviceCodec:
             raise ValueError(f"expected (2k, TW) words, got "
                              f"{tuple(words.shape)}")
         self._check_words(words[None], 2 * M.shape[1])
-        return self._byte_rows(M, words[None], None)[0]
+        nbytes = 4 * words.numel()
+        route = self._admit("matmul_words_bytesliced", M, None, nbytes)
+        with device_gate(), device_op("matmul_words_bytesliced", route,
+                                      nbytes, synced=False) as dt:
+            out = self._byte_rows(M, words[None], None)[0]
+            self._analyze(dt, M, words.shape[0], 2 * M.shape[0],
+                          words.shape[1])
+            return out
 
     def _byte_rows(self, M: np.ndarray, words: torch.Tensor,
                    tier: Optional[str]) -> torch.Tensor:
@@ -543,8 +1051,10 @@ class DeviceCodec:
         error-correcting decode (matrix/bw.py); ``rows`` the full (m, S)
         received stripes. XOR is addition in the field, so this is ONE
         generator-shaped product with the augmented matrix [A | I] over
-        all m rows, on the same kernels as encode. Returns (s, per-column
-        nonzero-row counts); the counts are taken on the host."""
+        all m rows, on the same kernels as encode, through
+        :meth:`matmul_stripes` (whose gate slot and ``device_op`` window it
+        takes, as in the reference). Returns (s, per-column nonzero-row
+        counts); the counts are taken on the host."""
         A = np.asarray(A, dtype=self.gf.dtype)
         r2, k = A.shape
         rows = np.asarray(rows, dtype=self.gf.dtype)
@@ -563,7 +1073,8 @@ class DeviceCodec:
         OR-fold of the consistency rows (TW,)): a nonzero byte of the
         second means that byte column defeated the single-support
         hypothesis and must go through the general path. One
-        generator-shaped product (:meth:`matmul_words`) and an OR."""
+        generator-shaped product (:meth:`matmul_words`, whose gate slot
+        and ``device_op`` window it takes) and an OR."""
         D = decode1_fold_matrix(self.gf, A, j)  # raises for r2 < 2
         out = self.matmul_words(D, rows_words)
         return out[0], _or_rows(out[1:])
@@ -578,7 +1089,8 @@ class DeviceCodec:
         as its two byte rows (2, TW), the OR-fold of every consistency
         byte row (TW,)): a u16 column is bad where either of its byte
         columns is nonzero. One byte-sliced product
-        (:meth:`matmul_words_bytesliced`)."""
+        (:meth:`matmul_words_bytesliced`, whose gate slot and
+        ``device_op`` window it takes)."""
         D = decode1_fold_matrix(self.gf, A, j)  # raises for r2 < 2
         out = self.matmul_words_bytesliced(D, rows_words)
         return out[:2], _or_rows(out[2:])
@@ -589,14 +1101,15 @@ class DeviceCodec:
                        tier: Optional[str] = None) -> np.ndarray:
         """(r, k) GF matrix x (k, S) symbol stripes (uint8 for GF(2^8),
         uint16 for GF(2^16)) -> (r, S), computed on the codec's device and
-        returned as a host array."""
+        returned as a host array (so its ``device_op`` time covers the
+        device round trip)."""
         M = np.asarray(M)
         D = np.asarray(D, dtype=self.gf.dtype)
         if D.shape[0] != M.shape[1]:
             raise ValueError(
                 f"matrix cols {M.shape[1]} != stripe rows {D.shape[0]}"
             )
-        return self._stripes(M, [D], tier)[0]
+        return self._stripes_entry(M, [D], tier)[0]
 
     def matmul_stripes_many(self, M: np.ndarray, Ds: list) -> list:
         """B same-shape stripes products through one batched dispatch (the
@@ -616,7 +1129,22 @@ class DeviceCodec:
                     "matmul_stripes_many requires same-shape stripes "
                     f"(got {D.shape} vs {(k, S)})"
                 )
-        return self._stripes(M, Ds, None)
+        return self._stripes_entry(M, Ds, None)
+
+    def _stripes_entry(self, M: np.ndarray, Ds: list,
+                       tier: Optional[str]) -> list:
+        """The gated, timed body of both stripes entries (one entry name,
+        "matmul_stripes", as in the reference)."""
+        nbytes = sum(D.nbytes for D in Ds)
+        route = self._admit("matmul_stripes", M, tier, nbytes)
+        with device_gate(), device_op("matmul_stripes", route,
+                                      nbytes) as dt:
+            out = self._stripes(M, Ds, tier)
+            s = self.sym_bytes
+            B = len(Ds)
+            self._analyze(dt, M, B * s * M.shape[1], B * s * M.shape[0],
+                          -(-Ds[0].nbytes // (4 * s * M.shape[1])))
+            return out
 
     def _stripes(self, M: np.ndarray, Ds: list,
                  tier: Optional[str]) -> list:

@@ -30,19 +30,22 @@ torch's caching host allocator recycles only once the array is gone.
 Parity-only fetch holds: the encoder brings back only the r parity rows,
 since the k data rows are already the caller's. On the CPU
 (``device="cpu"``) the same code runs the kernels' plain versions with no
-copies in flight. The reference's ``noise_ec_stream_chunk_seconds``
-histogram is left out until the observability slice (ROADMAP queue 1
-item 1).
+copies in flight. Each chunk's dispatch-to-fetch latency lands in the
+``noise_ec_stream_chunk_seconds`` histogram, one observation a chunk, as
+in the reference (it includes the window's queueing: a growing p99 means
+the consumer or the fetch, not the kernels, holds the stream back).
 """
 
 from __future__ import annotations
 
+import time
 from collections import deque
 from typing import Iterable, Iterator, Optional
 
 import numpy as np
 import torch
 
+from noise_ec_tpu_torch.obs.registry import default_registry
 from noise_ec_tpu_torch.parallel.batch import BatchCodec
 
 __all__ = [
@@ -169,10 +172,12 @@ def _drain(window: deque, depth: int) -> Iterator[tuple]:
         yield index, payload, _rows(host, done)
 
 
-def _chunks(drained: Iterator[tuple]) -> Iterator[StreamChunk]:
-    """The encoder's drained (index, (data_len, data), parity) entries as
-    StreamChunks."""
-    for index, (data_len, data), parity in drained:
+def _chunks(drained: Iterator[tuple], hist) -> Iterator[StreamChunk]:
+    """The encoder's drained (index, (data_len, data, t0), parity) entries
+    as StreamChunks, observing each chunk's seconds since its dispatch
+    (``t0``) into ``hist``."""
+    for index, (data_len, data, t0), parity in drained:
+        hist.observe(time.perf_counter() - t0)
         yield StreamChunk(index=index, data_len=data_len, data=data,
                           parity=parity)
 
@@ -199,6 +204,11 @@ class StreamingEncoder:
         self.chunk_bytes = max(quantum, chunk_bytes - chunk_bytes % quantum)
         wq = 4 * data_shards
         self._padded_bytes = -(-self.chunk_bytes // wq) * wq
+        # Per-chunk dispatch-to-fetch latency: one observe a chunk,
+        # nothing on the per-kernel path.
+        self._chunk_hist = default_registry().histogram(
+            "noise_ec_stream_chunk_seconds"
+        ).labels()
 
     def _stage(self, chunk) -> np.ndarray:
         """(k, stride) uint8 data rows: a view of the caller's bytes for a
@@ -214,12 +224,13 @@ class StreamingEncoder:
         """Queue one chunk's upload, parity product and parity fetch; its
         window entry. Waits on nothing in flight but its ring slot's last
         product."""
+        t0 = time.perf_counter()
         data = self._stage(chunk)
         words, slot = ring.put(data)
         parity = self.codec.device_codec().matmul_words_batch(
             self.codec.parity_matrix, words)[0]
         ring.release(slot)
-        return (idx, (len(chunk), data), *_fetch(parity))
+        return (idx, (len(chunk), data, t0), *_fetch(parity))
 
     def encode_stream(self, chunks: Iterable, depth: int = 4
                       ) -> Iterator[StreamChunk]:
@@ -234,8 +245,8 @@ class StreamingEncoder:
                     f"{self.chunk_bytes}"
                 )
             window.append(self._dispatch(idx, chunk, ring))
-            yield from _chunks(_drain(window, depth))
-        yield from _chunks(_drain(window, 0))
+            yield from _chunks(_drain(window, depth), self._chunk_hist)
+        yield from _chunks(_drain(window, 0), self._chunk_hist)
 
     def encode_bytes(self, data, depth: int = 4) -> Iterator[StreamChunk]:
         """Chunk a contiguous buffer (zero-copy slices) and encode it."""
