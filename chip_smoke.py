@@ -119,8 +119,9 @@ before printing any result. Phases (one JSON line each):
    the global reconstruct, ``repair_many`` of three stripes, each held
    byte-equal to the NumPy LRC with the same tier counters; each matrix's
    ``route_for``, and encode GB/s, local-heal p50 and global-reconstruct
-   p50. These two phases print their paths' launches on their own lines
-   (``by_path``, ``launches``); the kernels line keeps the main path's;
+   p50. These two phases and ``node`` (5 below) print their paths'
+   launches on their own lines (``by_path``, ``launches``, ``by_run``);
+   the kernels line keeps the main path's;
 4. times — CUDA-event medians with the L2 cache flushed between launches:
    each kernel and its plain version beside the least time the card could
    take, the codec's RS(10,4) encode rate (device-resident words and end
@@ -152,13 +153,29 @@ before printing any result. Phases (one JSON line each):
    dense_times — K9, K11 and K12 beside their bounds and plain versions
    at RS(10,4)'s shapes, and K11 on RS(50,20)'s masks, with K11's block
    shape and K split;
-   fec_times — the FEC decode p50 per case and route on the host clock,
+   fec_times — the FEC decode p50 per case and route on the host clock
+   (the host route on the native shim, its calls counted per case),
    beside the CUDA-event time of the device route's product;
    layer_cost — RS(4,2) on a 64 KiB message and RS(10,4) at 1 MiB
    shards, encode and reconstruct p50, the gate, ``device_op``,
    ``record_kernel`` and the breaker alone, and the two cases with those
    layers on and off in turn in one process
-   (``noise_ec_tpu_torch/tools/layer_cost.py``).
+   (``noise_ec_tpu_torch/tools/layer_cost.py``);
+5. node, after every timed phase (its threads, sockets and objects stay
+   out of their process state) — the reference's program on the port
+   (``noise_ec_tpu_torch.host``, with the Ed25519 backend named): 4
+   senders x 24 distinct 64 KiB messages at the reference's RS(4,2) over
+   TCP on 127.0.0.1 into one receiver with ``recv_shards=2``, in one
+   process (msg/s, MB/s, p50/p99 of ``noise_ec_e2e_latency_seconds``,
+   every payload byte-equal, the span stages' host milliseconds), and one
+   64 MiB object at RS(10,14) in 4 MiB chunks between two loopback nodes
+   (best of 3 MB/s, byte-equal, delivered once), each on the device
+   backend (K5 launched; the K5 product timed alone times the products,
+   over the wall time) and on the numpy backend (the native shim; no
+   launch); no geometry rate-limited and no host-only codec; then two CLI
+   processes on the card (``-device cuda``): a line and a ``/send`` of a
+   64 MiB file, each received byte-equal, a ceiling on every wait, both
+   processes stopped.
 
 Each phase's line carries its seconds and its ``health``, checked after
 the phase as differences across it: no product fell back to the host
@@ -2954,7 +2971,9 @@ def phase_dense_times(rng, device, results: dict) -> dict:
 
 def phase_fec_times(rng, device) -> dict:
     """FEC(10, 14) decode at 1 MiB shares, median of FEC_REPS warm decodes
-    on the host clock, per :func:`fec_cases` case and route, and GF(2^16)
+    on the host clock, per :func:`fec_cases` case and route (the host
+    route's syndrome, row products and decode1 fold on the native shim,
+    with its calls counted per case), and GF(2^16)
     FEC(10, 14) with one wholly corrupt share on the device route; beside
     each device-route case, the CUDA-event time of its product on the
     card alone, from words already there: the decode1 fold
@@ -2995,16 +3014,37 @@ def phase_fec_times(rng, device) -> dict:
         "whole_share": lambda: dev.decode1_words(A, 1, w_whole),
         "scattered": lambda: dev.matmul_words(aug, w_scat),
     }
+    # The host route runs on the native shim (matrix/bw.py): count its
+    # calls per case, so the line says which of its kernels ran.
+    from noise_ec_tpu_torch import shim
+
+    shim_calls: dict = {}
+    for fn in ("gf_syndrome_rows", "gf_matmul_rows", "gf_decode1_fused"):
+        real = getattr(shim, fn)
+
+        def counted(*a, _real=real, _fn=fn, **kw):
+            shim_calls[_fn] = shim_calls.get(_fn, 0) + 1
+            return _real(*a, **kw)
+
+        setattr(shim, fn, counted)
     out = {}
-    for name, case in cases.items():
-        row = {route: host_p50(lambda: fec.decode(case))
-               for route, fec in fecs.items()}
-        out[name] = {
-            "device_route_p50_ms": row["device"],
-            "host_route_p50_ms": row["host"],
-            "device_product_ms": (timer.median_ms(products[name])
-                                  if products[name] else None),
-        }
+    try:
+        for name, case in cases.items():
+            device_p50 = host_p50(lambda: fecs["device"].decode(case))
+            shim_calls.clear()
+            host_p50_ms = host_p50(lambda: fecs["host"].decode(case))
+            out[name] = {
+                "device_route_p50_ms": device_p50,
+                "host_route_p50_ms": host_p50_ms,
+                "host_route_shim_calls": dict(shim_calls),
+                "device_product_ms": (timer.median_ms(products[name])
+                                      if products[name] else None),
+            }
+            if name != "in_order_k":
+                check(shim_calls, f"{name}: the host route ran on the shim")
+    finally:
+        for fn in ("gf_syndrome_rows", "gf_matmul_rows", "gf_decode1_fused"):
+            setattr(shim, fn, getattr(shim.binding, fn))
 
     fec16 = FEC(10, 14, field="gf65536", bw_route="device")
     case16 = fec_cases(rng, fec16.encode_shares(payload), 10)["whole_share"]
@@ -3505,7 +3545,8 @@ def phase_resilience(rng) -> dict:
     ``RuntimeError``: exactly two attempts, the trip, and
     ``CodecUnavailableError`` chained to the fault with ``reason="error"``
     +1; then encode and reconstruct refused at once with ``reason="open"``;
-    the codec's host arithmetic runs no product throughout. With the patch
+    the codec's host arithmetic (``codec/rs.py``'s ``native_matvec``, the
+    numpy backend's product) runs no product throughout. With the patch
     lifted, the prober's canary (on the card) re-closes the breaker within
     30 s, and the next encode and reconstruct run on the device (K5) with
     the bytes of ``host_matvec``. A launch patched to raise
@@ -3558,7 +3599,7 @@ def phase_resilience(rng) -> dict:
     attempts = {"n": 0}
     host_runs = {"n": 0}
     real = DeviceCodec.matmul_stripes_many
-    real_host = rs_module.host_matvec
+    real_host = rs_module.native_matvec
 
     def injected(self, M, Ds):
         if self is rs._dev:  # the prober's canary has a codec of its own
@@ -3571,7 +3612,7 @@ def phase_resilience(rng) -> dict:
 
     c0 = counts()
     DeviceCodec.matmul_stripes_many = injected
-    rs_module.host_matvec = host_spy
+    rs_module.native_matvec = host_spy
     try:
         exc = refuses(lambda: rs.encode(data))
         check(exc is not None and isinstance(exc.__cause__, RuntimeError),
@@ -3616,7 +3657,7 @@ def phase_resilience(rng) -> dict:
         torch.cuda.synchronize()
         by_path["after_reclose"] = launch_counts()
     finally:
-        rs_module.host_matvec = real_host
+        rs_module.native_matvec = real_host
     check(host_runs["n"] == 0,
           f"the codec ran no product on the host ({host_runs['n']})")
     check(by_path["after_reclose"]["fused_split"] >= 1
@@ -3863,6 +3904,394 @@ def phase_lrc(rng) -> dict:
     return report
 
 
+NODE_SENDERS = 4         # bench.py's host node round trip (bench.py:325-430)
+NODE_MSGS = 24           # messages a sender
+NODE_MSG_BYTES = 64 << 10
+NODE_OBJECT_BYTES = 64 * MIB   # bench.py's large object (bench.py:470-527)
+NODE_CHUNK = 4 * MIB
+NODE_OBJECT_REPS = 3     # best of
+NODE_WAIT_S = 120.0      # the ceiling of every wait on a node
+NODE_CLI_SEND_S = 300.0  # a 64 MiB /send between two CLI processes
+
+
+def wait_until(cond, timeout: float, what: str) -> None:
+    deadline = time.monotonic() + timeout
+    while not cond():
+        check(time.monotonic() < deadline, f"{what} within {timeout:g} s")
+        time.sleep(0.005)
+
+
+def e2e_ok_counts() -> tuple:
+    """The bucket bounds and raw counts of
+    ``noise_ec_e2e_latency_seconds{outcome="ok"}`` so far."""
+    from noise_ec_tpu_torch.obs import default_registry
+
+    h = default_registry().histogram("noise_ec_e2e_latency_seconds").labels(
+        outcome="ok")
+    return h.bounds, list(h.snapshot()["counts"])
+
+
+def stage_sums() -> dict:
+    """Per span stage, the count and seconds summed so far in
+    ``noise_ec_stage_seconds`` (the tracer's stage histogram)."""
+    from noise_ec_tpu_torch.obs import default_registry
+
+    fam = default_registry().histogram("noise_ec_stage_seconds")
+    return {key[0]: (h.count, h.sum) for key, h in fam.children()}
+
+
+def stage_delta(before: dict) -> dict:
+    """Each stage's spans and milliseconds since ``before``: the host
+    time the node's spans cover, by stage (they nest: prepare holds sign
+    and encode)."""
+    out = {}
+    for stage, (n, secs) in stage_sums().items():
+        n0, s0 = before.get(stage, (0, 0.0))
+        if n > n0:
+            out[stage] = {"spans": n - n0, "ms": (secs - s0) * 1e3}
+    return out
+
+
+def node_roundtrip(rng, backend: str, timer) -> dict:
+    """NODE_SENDERS port nodes over real TCP on 127.0.0.1, each sending
+    NODE_MSGS distinct 64 KiB messages at the reference's default RS(4,2)
+    on its own thread into one receiver (recv_shards=2), after one warm
+    message each: msg/s and MB/s on the host clock, p50 and p99 of the
+    receive path's e2e histogram over the timed window, every payload
+    byte-equal, the window's kernel launches, and on the device backend
+    the K5 product of one message timed alone (CUDA events, device-resident
+    words) times the encodes, over the wall time."""
+    from noise_ec_tpu_torch.host.plugin import ShardPlugin
+    from noise_ec_tpu_torch.host.transport import TCPNetwork
+    from noise_ec_tpu_torch.obs.metrics import percentile_from
+    from noise_ec_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    total = NODE_SENDERS * NODE_MSGS
+    got: dict = {}
+    lock = threading.Lock()
+    done = threading.Event()
+    want = [NODE_SENDERS]
+
+    def on_message(m, s):
+        with lock:
+            got[bytes(m[:8])] = m
+            if len(got) >= want[0]:
+                done.set()
+
+    nets = []
+    try:
+        recv = TCPNetwork(host="127.0.0.1", port=0, discovery=False,
+                          recv_shards=2)
+        nets.append(recv)
+        recv.add_plugin(ShardPlugin(backend=backend, on_message=on_message))
+        recv.listen()
+        senders = []
+        for _ in range(NODE_SENDERS):
+            net = TCPNetwork(host="127.0.0.1", port=0, discovery=False)
+            nets.append(net)
+            net.add_plugin(ShardPlugin(backend=backend))
+            net.listen()
+            net.bootstrap([recv.id.address])
+            senders.append(net)
+        wait_until(lambda: len(recv.peers) >= NODE_SENDERS, NODE_WAIT_S,
+                   f"{NODE_SENDERS} senders registered")
+        base = rng.integers(0, 256, size=NODE_MSG_BYTES, dtype=np.uint8)
+
+        def payload(i: int, m: int) -> bytes:
+            # Distinct payloads: identical bytes share a signature, and
+            # the receiver's replay window would drop the repeats.
+            b = base.copy()
+            b[:8] = np.frombuffer((i << 32 | m).to_bytes(8, "little"),
+                                  np.uint8)
+            return b.tobytes()
+
+        errors = []
+
+        def send(i: int, first: int, count: int) -> None:
+            try:
+                plugin = senders[i].plugins[0]
+                for m in range(first, first + count):
+                    plugin.shard_and_broadcast(senders[i], payload(i, m))
+            except Exception as exc:  # noqa: BLE001 — reported below
+                errors.append(repr(exc))
+
+        for i in range(NODE_SENDERS):  # warm: codecs, plans, key tables
+            send(i, 0, 1)
+        check(done.wait(NODE_WAIT_S) and not errors,
+              f"{backend} node warm-up delivered ({errors})")
+        with lock:
+            got.clear()
+            want[0] = total
+            done.clear()
+        bounds, e2e0 = e2e_ok_counts()
+        stages0 = stage_sums()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=send, args=(i, 1, NODE_MSGS))
+                   for i in range(NODE_SENDERS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(NODE_WAIT_S)
+        delivered = done.wait(NODE_WAIT_S)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        check(not any(t.is_alive() for t in threads) and not errors,
+              f"{backend} node senders finished ({errors})")
+        check(delivered and len(got) == total,
+              f"{backend} node delivered {len(got)}/{total} messages")
+        check(all(got.get(payload(i, m)[:8]) == payload(i, m)
+                  for i in range(NODE_SENDERS)
+                  for m in range(1, NODE_MSGS + 1)),
+              f"{backend} node payloads byte-equal")
+        _, e2e1 = e2e_ok_counts()
+        e2e = [b - a for a, b in zip(e2e0, e2e1)]
+        check(sum(e2e) == total, f"{backend} node e2e events ({sum(e2e)})")
+        plugins = [n.plugins[0] for n in nets]
+        limited = sum(p.counters.get("geometry_rate_limited")
+                      for p in plugins)
+        host_codecs = sum(len(p._fec_host_cache) for p in plugins)
+        check(limited == 0 and host_codecs == 0,
+              f"{backend} node: no geometry rate-limited ({limited}), no "
+              f"host-only codec ({host_codecs})")
+        out = {
+            "backend": backend, "senders": NODE_SENDERS,
+            "messages": total, "message_bytes": NODE_MSG_BYTES,
+            "geometry": [4, 6], "recv_shards": 2, "wall_seconds": wall,
+            "msgs_per_s": total / wall,
+            "mb_per_s": total * NODE_MSG_BYTES / wall / 1e6,
+            "e2e_p50_ms": percentile_from(bounds, e2e, 0.50) * 1e3,
+            "e2e_p99_ms": percentile_from(bounds, e2e, 0.99) * 1e3,
+            "geometry_rate_limited": limited, "host_only_codecs": host_codecs,
+            "stages": stage_delta(stages0), "launches": launches,
+        }
+        if backend == "device":
+            check(launches["fused_split"] > 0,
+                  "the device-backend node launched K5")
+            fec = senders[0].plugins[0]._fec_cache[(4, 6)]
+            dev = fec._rs._dev
+            words = rand_words(rng, (1, 4, NODE_MSG_BYTES // 16), dev.device)
+            ms = timer.median_ms(
+                lambda: dev.matmul_words_batch(fec._rs.G[4:], words))
+            out["encode_product_ms"] = ms
+            out["device_share"] = total * ms / 1e3 / wall
+        else:
+            check(sum(launches.values()) == 0,
+                  "the numpy-backend node launched no kernel")
+        return out
+    finally:
+        for net in nets:
+            net.close()
+
+
+def node_object(rng, backend: str, timer) -> dict:
+    """One 64 MiB object node to node at RS(10,14) in 4 MiB chunks through
+    ``stream_and_broadcast`` (two in-process nodes on a loopback hub, as
+    bench.py:470-527 runs it), after a full-size warm pass: best of
+    NODE_OBJECT_REPS on the host clock with distinct payloads, each
+    delivered once and byte-equal (``on_object``), the launches, and on
+    the device backend the K5 product of one chunk timed alone times the
+    chunks, over the best wall time."""
+    from noise_ec_tpu_torch.host.plugin import ShardPlugin
+    from noise_ec_tpu_torch.host.transport import (
+        LoopbackHub,
+        LoopbackNetwork,
+        format_address,
+    )
+    from noise_ec_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    hub = LoopbackHub()
+    a = LoopbackNetwork(hub, format_address("tcp", "localhost", 3100))
+    b = LoopbackNetwork(hub, format_address("tcp", "localhost", 3101))
+    got = []
+    a.add_plugin(ShardPlugin(backend=backend, minimum_needed_shards=10,
+                             total_shards=14))
+    b.add_plugin(ShardPlugin(backend=backend, minimum_needed_shards=10,
+                             total_shards=14,
+                             on_object=lambda m, s: got.append(m)))
+    send = a.plugins[0]
+    big = rng.integers(0, 256, size=NODE_OBJECT_BYTES,
+                       dtype=np.uint8).tobytes()
+    warm = big[2:] + b"\0\0"
+    chunks = send.stream_and_broadcast(a, warm, chunk_bytes=NODE_CHUNK)
+    check(len(got) == 1 and got[0] == warm, f"{backend} object warm pass")
+    reset_launch_counts()
+    stages0 = stage_sums()
+    seconds = []
+    for trial in range(NODE_OBJECT_REPS):
+        data = big if trial == 0 else big[trial:] + bytes([trial]) * trial
+        got.clear()
+        t0 = time.perf_counter()
+        send.stream_and_broadcast(a, data, chunk_bytes=NODE_CHUNK)
+        seconds.append(time.perf_counter() - t0)
+        check(len(got) == 1 and got[0] == data,
+              f"{backend} object {trial} delivered once, byte-equal")
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    plugins = (send, b.plugins[0])
+    limited = sum(p.counters.get("geometry_rate_limited") for p in plugins)
+    check(limited == 0, f"{backend} object: no geometry rate-limited")
+    best = min(seconds)
+    out = {
+        "backend": backend, "object_bytes": NODE_OBJECT_BYTES,
+        "chunk_bytes": NODE_CHUNK, "chunks": chunks, "geometry": [10, 14],
+        "seconds": seconds, "mb_per_s": NODE_OBJECT_BYTES / best / 1e6,
+        "geometry_rate_limited": limited, "stages": stage_delta(stages0),
+        "launches": launches,
+    }
+    if backend == "device":
+        check(launches["fused_split"] > 0,
+              "the device-backend object stream launched K5")
+        from noise_ec_tpu_torch.parallel import BatchCodec
+
+        codec = BatchCodec(10, 4)
+        stride = NODE_CHUNK // 10 // 4 * 4
+        words = rand_words(rng, (1, 10, stride // 4), torch.device("cuda"))
+        ms = timer.median_ms(lambda: codec.device_codec().matmul_words_batch(
+            codec.parity_matrix, words))
+        out["chunk_product_ms"] = ms
+        out["device_share"] = chunks * ms / 1e3 / best
+    else:
+        check(sum(launches.values()) == 0,
+              "the numpy-backend object stream launched no kernel")
+    del got, big, warm
+    return out
+
+
+class CliNode:
+    """One ``python -m noise_ec_tpu_torch.host.cli`` process with a
+    scraper of its log (stderr)."""
+
+    def __init__(self, port: int, *args: str):
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "noise_ec_tpu_torch.host.cli",
+             "-port", str(port), "-host", "127.0.0.1", "-device", "cuda",
+             *args],
+            stdin=subprocess.PIPE, stdout=subprocess.DEVNULL,
+            stderr=subprocess.PIPE, text=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+        )
+        self.lines: list = []
+        self._cond = threading.Condition()
+        self._reader = threading.Thread(target=self._scrape, daemon=True)
+        self._reader.start()
+
+    def _scrape(self) -> None:
+        for line in self.proc.stderr:
+            with self._cond:
+                self.lines.append(line)
+                self._cond.notify_all()
+
+    def wait_for(self, needle: str, timeout: float) -> None:
+        deadline = time.monotonic() + timeout
+        with self._cond:
+            while not any(needle in line for line in self.lines):
+                remaining = deadline - time.monotonic()
+                check(remaining > 0 and self._reader.is_alive(),
+                      f"node log line {needle!r} within {timeout:g} s (rc "
+                      f"{self.proc.poll()}; last lines: "
+                      f"{''.join(self.lines[-20:])})")
+                self._cond.wait(min(remaining, 0.5))
+
+    def send_line(self, text: str) -> None:
+        self.proc.stdin.write(text + "\n")
+        self.proc.stdin.flush()
+
+    def stop(self) -> None:
+        try:
+            self.proc.stdin.close()
+            self.proc.wait(timeout=30)
+        except (OSError, subprocess.TimeoutExpired):
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+        self._reader.join(timeout=5)
+
+
+def free_ports(count: int) -> list:
+    import socket
+
+    socks = [socket.socket() for _ in range(count)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+def node_cli(rng) -> dict:
+    """Two CLI processes on the card (``-device cuda``) over TCP: one line
+    and one ``/send`` of a 64 MiB file from A to B, each received
+    byte-equal (B's ``-recv-dir`` file, named by its content hash), with a
+    ceiling on every wait; both processes are stopped either way."""
+    import hashlib
+    import tempfile
+
+    payload = rng.integers(0, 256, size=NODE_OBJECT_BYTES,
+                           dtype=np.uint8).tobytes()
+    with tempfile.TemporaryDirectory(prefix="noise_ec_node_") as tmp:
+        recv_dir = os.path.join(tmp, "recv")
+        src = os.path.join(tmp, "object.bin")
+        with open(src, "wb") as f:
+            f.write(payload)
+        pa, pb = free_ports(2)
+        started = []
+        try:
+            t0 = time.perf_counter()
+            b = CliNode(pb, "-recv-dir", recv_dir)
+            started.append(b)
+            b.wait_for("listening for peers", NODE_WAIT_S)
+            a = CliNode(pa, "-peers", f"tcp://127.0.0.1:{pb}")
+            started.append(a)
+            a.wait_for("listening for peers", NODE_WAIT_S)
+            b.wait_for(f"registered peer tcp://127.0.0.1:{pa}", NODE_WAIT_S)
+            start_s = time.perf_counter() - t0
+            line = "hello from the node phase on the card"
+            t0 = time.perf_counter()
+            a.send_line(line)
+            b.wait_for(f"message from tcp://127.0.0.1:{pa}: "
+                       f"{line.encode().hex()}", NODE_WAIT_S)
+            line_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            a.send_line(f"/send {src}")
+            b.wait_for(f"saved {len(payload)} bytes", NODE_CLI_SEND_S)
+            send_s = time.perf_counter() - t0
+            name = hashlib.blake2b(payload, digest_size=8).hexdigest()
+            with open(os.path.join(recv_dir, name), "rb") as f:
+                check(f.read() == payload, "the CLI /send arrived byte-equal")
+        finally:
+            for node in started:
+                node.stop()
+        rcs = [node.proc.returncode for node in started]
+    check(rcs == [0, 0], f"both CLI nodes exited 0 ({rcs})")
+    return {"start_seconds": start_s, "line_seconds": line_s,
+            "send_seconds": send_s, "send_bytes": len(payload),
+            "send_mb_per_s": len(payload) / send_s / 1e6}
+
+
+def phase_node(rng, device) -> dict:
+    """The node (plugin + transport + wire + crypto) on the card and on
+    the port's host codec: :func:`node_roundtrip` and :func:`node_object`
+    on ``-backend device`` (the CUDA codec) and ``-backend numpy`` (NumPy
+    and the native shim), then :func:`node_cli`. Its launches are on its
+    own line (``by_run``); the kernels line keeps the main path's."""
+    from noise_ec_tpu_torch.host.crypto import ED25519_BACKEND
+
+    timer = Timer(device)
+    report = {"phase": "node", "nvidia_smi": nvidia_smi(),
+              "ed25519_backend": ED25519_BACKEND, "runs": {}}
+    for backend in ("device", "numpy"):
+        report["runs"][f"roundtrip_{backend}"] = node_roundtrip(
+            rng, backend, timer)
+        report["runs"][f"object_{backend}"] = node_object(rng, backend, timer)
+    report["cli"] = node_cli(rng)
+    report["by_run"] = {name: run.pop("launches")
+                        for name, run in report["runs"].items()}
+    del timer
+    return report
+
+
 def phase_layer_cost(rng) -> dict:
     """The host layers this slice put around every codec call: RS(4,2) on
     a 64 KiB message and RS(10,4) at 1 MiB shards, encode and reconstruct
@@ -4008,6 +4437,9 @@ def main() -> int:
         timed(phase_dense_sweep, rng, device)
     if args.pack_sweep:
         timed(phase_pack_sweep, rng, device)
+    # The node runs last: its host threads, sockets and 64 MiB objects
+    # stay out of every timed phase's process state.
+    timed(phase_node, rng, device)
     kernels = []
     for name, res in results.items():
         res["launches"] = main_path["launches"][name]

@@ -17,7 +17,8 @@ Backends:
 - "device" (default): the geometry-cached kernels of
   ``noise_ec_tpu_torch.ops.dispatch`` on ``device`` — "cuda" unless the
   caller asks for "cpu", where the kernels' plain PyTorch versions run.
-- "numpy": pure host path (the NumPy field arithmetic).
+- "numpy": pure host path, its products on the native shim
+  (``matrix/hostmath.py`` ``native_matvec``), as in the reference.
 
 Behind the device backend sits the process-wide codec breaker
 (ops/dispatch.py): a failed batched product is retried once, and a second
@@ -42,7 +43,7 @@ import numpy as np
 
 from noise_ec_tpu_torch.gf.field import GF, GF256, GF65536
 from noise_ec_tpu_torch.matrix.generators import generator_matrix
-from noise_ec_tpu_torch.matrix.hostmath import host_matvec
+from noise_ec_tpu_torch.matrix.hostmath import native_matvec
 from noise_ec_tpu_torch.matrix.linalg import reconstruction_matrix
 
 Buffer = Union[bytes, bytearray, memoryview, np.ndarray]
@@ -190,7 +191,7 @@ class ReedSolomon:
         every instance sharing the bucket key produces identical bytes,
         and an error reaches every member of the batch)."""
         if self._dev is None:
-            return [host_matvec(self.gf, M, D) for D in Ds]
+            return [native_matvec(self.gf, M, D) for D in Ds]
         breaker = self._breaker
         if not breaker.allow():
             self._refuse_open()

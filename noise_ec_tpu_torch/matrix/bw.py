@@ -1,13 +1,15 @@
 """Berlekamp-Welch error-correcting decode for the GRS constructions.
 
-A copy of ``noise_ec_tpu.matrix.bw`` on the port's modules. The reference's
-native shim (``noise_ec_tpu.shim``) is not ported: where the reference
-calls it on the host, this module takes the NumPy path that the reference
-itself takes when the shim is absent. That is the host route, chosen by the
-caller (``device=None``), not a fallback from the device: the device route
-(``device`` a :class:`~noise_ec_tpu_torch.ops.dispatch.DeviceCodec`) sends
-the syndrome, solve and decode1-fold products to the card, and a device
-error propagates.
+A copy of ``noise_ec_tpu.matrix.bw`` on the port's modules. The host route
+(``device=None``, chosen by the caller) runs the syndrome, the row products
+and the decode1 fused fold on the port's native shim
+(:mod:`noise_ec_tpu_torch.shim`), over GF(2^8) and GF(2^16), as the
+reference does; only a shape the shim does not take goes to NumPy, and a
+shim that cannot be built or loaded raises ``ShimBuildError`` (the
+reference drops to NumPy instead). The device route (``device`` a
+:class:`~noise_ec_tpu_torch.ops.dispatch.DeviceCodec`) sends the syndrome,
+solve and decode1-fold products to the card, and a device error
+propagates.
 
 The reference's codec (``vivint/infectious``, called at main.go:77) does
 not just fill erasures: with more than k
@@ -196,17 +198,27 @@ def _syndrome(
     rows: list,
     k: int,
     *,
+    want_s: bool = True,
     device=None,
 ) -> tuple[Optional[np.ndarray], np.ndarray]:
     """s = A @ rows[:k] ^ rows[k:], plus per-column nonzero-row counts.
 
     Dispatch: DeviceCodec (one augmented-matrix device matmul) when a
-    device is supplied, NumPy on the host otherwise. (The reference's
-    ``want_s`` hint let its shim skip building s; NumPy builds it either
-    way, so the port has no such parameter.)
+    device is supplied, else the native shim's fused tiled kernels on the
+    host (GF(2^8) and GF(2^16); ``want_s`` False lets it skip building s),
+    NumPy for what the shim does not take. Row buffers are consumed in
+    place (no stacking copy on the shim path).
     """
     if device is not None:
         return device.syndrome_stripes(A, np.stack(rows))
+    if gf.degree in (8, 16):
+        from noise_ec_tpu_torch.shim import gf16_syndrome_rows, gf_syndrome_rows
+
+        fn = gf_syndrome_rows if gf.degree == 8 else gf16_syndrome_rows
+        out = fn(np.asarray(A), rows[:k], rows[k:], rows[0].size,
+                 want_syndrome=want_s)
+        if out is not None:
+            return out
     pred = gf.matvec_stripes(np.asarray(A, dtype=np.int64), np.stack(rows[:k]))
     s = (pred.astype(gf.dtype) ^ np.stack(rows[k:])).astype(gf.dtype)
     return s, np.count_nonzero(s, axis=0)
@@ -216,6 +228,11 @@ def _matmul_rows(gf: GF, M: np.ndarray, rows: list, *, device=None) -> np.ndarra
     """M @ rows over GF on the fastest available backend (see _syndrome)."""
     if device is not None:
         return np.asarray(device.matmul_stripes(np.asarray(M), np.stack(rows)))
+    if gf.degree in (8, 16):
+        from noise_ec_tpu_torch.shim import gf16_matmul_rows, gf_matmul_rows
+
+        fn = gf_matmul_rows if gf.degree == 8 else gf16_matmul_rows
+        return fn(np.asarray(M), rows, rows[0].size)
     return gf.matvec_stripes(
         np.asarray(M, dtype=np.int64), np.stack(rows)
     ).astype(gf.dtype)
@@ -284,7 +301,7 @@ def _solve_support_gathered(
         _, c2 = _syndrome(
             gf, B[Q],
             list(z) + [np.ascontiguousarray(scols[q][cols]) for q in Q],
-            size,
+            size, want_s=False,
         )
         ok = c2 == 0
     else:
@@ -428,10 +445,10 @@ def _try_fused_single_row(
     e: int,
     systematic: bool,
     recurse,
-    device,
+    device=None,
 ):
-    """Speculative whole-share decode on the device route: one fused
-    product when a single basis row explains the corruption.
+    """Speculative whole-share decode: one fused pass when a single basis
+    row explains the corruption.
 
     Whole-share corruption — the reference's dominant corruption mode (a
     peer ships one bad share; infectious Decode corrects it,
@@ -439,16 +456,20 @@ def _try_fused_single_row(
     support. The generic path then materializes the (m-k, S) syndrome and
     runs solve + verify + apply passes over the full width (~25 MiB of
     traffic for RS(10,4) at 1 MiB shards). This path instead probes a
-    prefix on the host, and when the probe says "mostly bad, one basis
-    row explains it" runs the decode1 fold
-    (ops/dispatch.decode1_fold_matrix): corrected row + rank-1
-    consistency rows as ONE generator-shaped device matmul — the same
-    kernels as encode. Columns whose consistency rows are nonzero
-    defeated the hypothesis; they are gathered and re-decoded through
-    ``recurse`` (the caller's generic machinery — exact, per-column; MDS
-    and par1 callers pass their own decoder so the per-column guarantee
-    matches the caller's contract). All rows are stacked on the host
-    before the product, as in the reference.
+    prefix, and when the probe says "mostly bad, one basis row explains
+    it" runs the shim's rs_decode1_fused: syndrome + solve + verify +
+    apply in ONE tiled pass (~16 MiB), never materializing the syndrome.
+    Columns the hypothesis cannot explain are gathered and re-decoded
+    through ``recurse`` (the caller's generic machinery — exact,
+    per-column; MDS and par1 callers pass their own decoder so the
+    per-column guarantee matches the caller's contract).
+
+    On the DEVICE route the same speculation runs the decode1 fold
+    (ops/dispatch.decode1_fold_matrix) instead of the shim: corrected
+    row + rank-1 consistency rows as ONE generator-shaped device matmul
+    — the same kernels as encode. Columns whose consistency rows are
+    nonzero defeated the hypothesis
+    and recurse exactly like the shim path's ``state == 2`` columns.
 
     Returns NotImplemented when the speculation does not apply (caller
     runs the generic path), None when a gathered leftover column is
@@ -471,16 +492,26 @@ def _try_fused_single_row(
         if cand >= k or (j is not None and cand != j):
             return NotImplemented
         j = cand
-    from noise_ec_tpu_torch.ops.dispatch import decode1_fold_matrix
+    if device is not None:
+        from noise_ec_tpu_torch.ops.dispatch import decode1_fold_matrix
 
-    try:
-        Dm = decode1_fold_matrix(gf, A, j)
-    except ValueError:  # < 2 check rows: no verify behind the fold
-        return NotImplemented
-    out = np.asarray(device.matmul_stripes(Dm, np.stack(rows)))
-    out_row = np.ascontiguousarray(out[0])
-    # Any nonzero consistency symbol defeats the hypothesis there.
-    state = (out[1:] != 0).any(axis=0).astype(np.uint8) * 2
+        try:
+            Dm = decode1_fold_matrix(gf, A, j)
+        except ValueError:  # < 2 check rows: no verify behind the fold
+            return NotImplemented
+        out = np.asarray(device.matmul_stripes(Dm, np.stack(rows)))
+        out_row = np.ascontiguousarray(out[0])
+        # Any nonzero consistency byte defeats the hypothesis there —
+        # same column contract as the shim's state == 2.
+        state = (out[1:] != 0).any(axis=0).astype(np.uint8) * 2
+    else:
+        from noise_ec_tpu_torch.shim import gf16_decode1_fused, gf_decode1_fused
+
+        fused_fn = gf_decode1_fused if gf.degree == 8 else gf16_decode1_fused
+        fused = fused_fn(A, rows[:k], rows[k:], j, e, S)
+        if fused is None:
+            return NotImplemented
+        out_row, state = fused
     corrections: dict[int, list] = {j: [("replace", out_row)]}
     overrides = {}
     leftover = np.flatnonzero(state == 2)
@@ -510,14 +541,13 @@ def _maybe_fused_single_row(
     speculate: bool,
 ):
     """One owner for the speculation gate shared by both decoders: arm the
-    fused path only on the device route (the reference's host fused pass
-    is its native shim, which the port does not carry; the reference
-    without its shim takes the generic path too) and on wide decodes (one
-    device pass beats materializing the syndrome there) with correction
-    actually permitted (callers fold contract knobs like max_support into
-    ``speculate``). NotImplemented = generic path."""
+    fused path only on wide decodes (both shim fields; the device route
+    arms at the same byte budget — one device pass beats materializing
+    the syndrome there too) with correction actually permitted (callers
+    fold contract knobs like max_support into ``speculate``).
+    NotImplemented = generic path."""
     if not (
-        speculate and e >= 1 and device is not None
+        speculate and e >= 1
         and gf.degree in (8, 16)
         and rows[0].size >= _speculate_min_symbols(gf)
     ):
@@ -737,7 +767,7 @@ def syndrome_decode_rows(
                 if Q:
                     _, c2 = _syndrome(
                         gf, B[Q], list(z) + [s[q] for q in Q], t,
-                        device=device,
+                        want_s=False, device=device,
                     )
                     apply_mask = rem_mask & (c2 == 0)
                 else:

@@ -1,9 +1,13 @@
-"""Host-side GF products: the ``backend="numpy"`` codec path.
+"""Host-side GF products.
 
-The JAX package's counterpart dispatches to its native C shim when the
-shared library is present. That shim belongs to the JAX package, so the
-port runs the NumPy ground truth, ``GF.matvec_stripes``, which the shim is
-tested bit-exact against.
+:func:`host_matvec` is the NumPy ground truth, ``GF.matvec_stripes``:
+the port's checks hold the kernels and the shim against it.
+:func:`native_matvec` is what the JAX package's ``host_matvec`` is: the
+``backend="numpy"`` codec's product on the native shim
+(:mod:`noise_ec_tpu_torch.shim`: split-nibble/GFNI kernels over GF(2^8),
+nibble-shuffle ones over GF(2^16)), byte-identical to the ground truth. A
+shim that cannot be built or loaded raises ``ShimBuildError``; the JAX
+package's drops to NumPy instead.
 """
 
 from __future__ import annotations
@@ -14,5 +18,20 @@ from noise_ec_tpu_torch.gf.field import GF
 
 
 def host_matvec(gf: GF, M: np.ndarray, D: np.ndarray) -> np.ndarray:
-    """M (r, k) @ D (k, S) over the field, on the host."""
+    """M (r, k) @ D (k, S) over the field, in NumPy."""
+    return gf.matvec_stripes(M, D)
+
+
+def native_matvec(gf: GF, M: np.ndarray, D: np.ndarray) -> np.ndarray:
+    """M (r, k) @ D (k, S) over the field on the native shim (NumPy for a
+    field the shim does not carry)."""
+    if gf.degree == 8:
+        from noise_ec_tpu_torch.shim import gf_matmul_stripes
+
+        return gf_matmul_stripes(np.asarray(M), np.asarray(D))
+    if gf.degree == 16:
+        from noise_ec_tpu_torch.shim import gf16_matmul_rows
+
+        D16 = np.ascontiguousarray(D, dtype=np.uint16)
+        return gf16_matmul_rows(np.asarray(M), list(D16), D16.shape[1])
     return gf.matvec_stripes(M, D)

@@ -1,12 +1,14 @@
 """Wide structured events: the "why" layer over metrics and traces.
 
 Port of ``noise_ec_tpu.obs.events``. In the port the codec breaker
-(``codec.refused``, ``codec.restore``), the device gate (``qos.preempt``)
-and the coalescer (``qos.linger``) emit; ``default_event_log().dump()``
-reads the ring. The span tracer that stamps each record's trace id and
-node comes with the first ported layer that opens spans (ROADMAP queue 1
-item 4); until then records carry ``trace_id`` None and ``node`` "",
-unless a caller installs a tracer with :func:`set_default_tracer`.
+(``codec.refused``, ``codec.restore``), the device gate (``qos.preempt``),
+the coalescer (``qos.linger``) and the node's transport (``conn.*``,
+``peer.drop``) emit; ``default_event_log().dump()`` reads the ring, and
+``GET /events`` serves it on the stats server. Every record is stamped
+from the span tracer (obs/trace.py ``default_tracer()``): the active
+request's trace id and the node's short id (empty until the node calls
+``set_node``). :func:`set_default_tracer` puts another stamp source in its
+place, for tests.
 
 Counters say *that* the fleet degraded; traces show *one* request's
 journey. The wide-event log records every load-bearing DECISION the
@@ -34,10 +36,11 @@ Model:
   are COUNTED, not lost: the next record of that name carries a
   ``suppressed`` attr with the number dropped since the last one, and
   ``noise_ec_events_suppressed_total{name}`` tracks the totals.
-- :meth:`EventLog.dump` reads the ring (``since``, ``name``, ``tenant``,
-  ``limit``); ``epoch`` is the log incarnation and :meth:`EventLog.last_seq`
-  the cursor for the next read. The reference's ``GET /events`` route
-  comes with the port's stats server (ROADMAP queue 1 item 4).
+- ``GET /events?since=&name=&tenant=&limit=`` serves the ring on the
+  stats-server route table, epoch-keyed exactly like ``/spans``: the
+  document's ``epoch`` is the log incarnation and ``next_since`` is
+  the cursor for the next poll, so a restarted node makes collectors
+  restart from 0 instead of silently skipping records.
 
 Event names are dot-scoped ``subsystem.decision`` literals (the
 ``EVENT_NAMES`` tuple is the bounded vocabulary — the ``name`` label on
@@ -47,17 +50,20 @@ do). See docs/observability.md "Wide events".
 
 from __future__ import annotations
 
+import json
 import threading
 import time
 from collections import deque
 from typing import Optional
 
 from noise_ec_tpu_torch.obs.registry import Registry, default_registry
+from noise_ec_tpu_torch.obs.trace import default_tracer
 
 __all__ = [
     "EVENT_NAMES",
     "PORT_EVENT_NAMES",
     "EVENT_FIELDS",
+    "EVENTS_DOC_FIELDS",
     "EventLog",
     "default_event_log",
     "event",
@@ -106,10 +112,16 @@ PORT_EVENT_NAMES: tuple[str, ...] = (
 )
 EVENT_NAMES += PORT_EVENT_NAMES
 
-# One event record's keys (docs/observability.md "Wide events").
+# One event record's keys — the schema /events serves
+# (docs/observability.md "Wide events").
 EVENT_FIELDS: tuple[str, ...] = (
     "seq", "ts", "name", "severity", "node", "trace_id", "tenant",
     "attrs",
+)
+
+# Top-level keys of the GET /events JSON document.
+EVENTS_DOC_FIELDS: tuple[str, ...] = (
+    "node", "epoch", "next_since", "events",
 )
 
 _SEVERITIES = ("debug", "info", "warn", "error")
@@ -154,8 +166,8 @@ class EventLog:
         self.rate = float(rate_per_name)
         self.burst = float(burst_per_name)
         self.enabled = True
-        # Log incarnation (same contract as Tracer.epoch): a reader
-        # detects a restart from it — the seq
+        # Log incarnation (same contract as Tracer.epoch): /events
+        # publishes it so a collector detects a restart — the seq
         # cursor reset to 0 — and re-fetches instead of skipping.
         self.epoch = time.time_ns()
         self._lock = threading.Lock()
@@ -215,8 +227,7 @@ class EventLog:
         if suppressed_now:
             self._supp_child(name).add(1)
             return
-        tracer = self._tracer if self._tracer is not None \
-            else _default_tracer
+        tracer = self._stamps()
         rec = {
             "ts": round(time.time(), 6),
             "name": name,
@@ -290,6 +301,46 @@ class EventLog:
             self._buckets.clear()
             self._pending_suppressed.clear()
 
+    # ------------------------------------------------------- HTTP route
+
+    def attach(self, server) -> None:
+        """Mount ``GET /events`` on a StatsServer (its route table)."""
+        server.mount("GET", "/events", self._route_events)
+
+    def _route_events(self, req: dict) -> tuple:
+        q = req["query"]
+        limit = since = None
+        try:
+            if "limit" in q:
+                limit = int(q["limit"][0])
+            if "since" in q:
+                since = int(q["since"][0])
+        except ValueError:
+            return 400, "text/plain", b"bad cursor\n"
+        name = q.get("name", [None])[0]
+        tenant = q.get("tenant", [None])[0]
+        tracer = self._stamps()
+        # next_since is read BEFORE the dump (the /spans contract): an
+        # event landing between the two reads is re-sent next poll
+        # rather than skipped forever.
+        doc = {
+            "node": getattr(tracer, "node", None) or {},
+            "epoch": self.epoch,
+            "next_since": self.last_seq(),
+            "events": self.dump(
+                since=since, name=name, tenant=tenant, limit=limit
+            ),
+        }
+        return 200, "application/json", json.dumps(doc, indent=1).encode()
+
+    def _stamps(self):
+        """The record stamp source: this log's tracer, else the one
+        :func:`set_default_tracer` installed, else the process tracer."""
+        if self._tracer is not None:
+            return self._tracer
+        return _stamp_override if _stamp_override is not None \
+            else default_tracer()
+
     # ---------------------------------------------------- metric plumbing
 
     def _reg(self) -> Registry:
@@ -325,29 +376,16 @@ def _jsonable(value):
     return str(value)
 
 
-class _NoTracer:
-    """The stamp source until a span tracer is installed: no node, no
-    request scope."""
-
-    @staticmethod
-    def node_label() -> str:
-        return ""
-
-    @staticmethod
-    def current_trace_id() -> Optional[str]:
-        return None
-
-
-_default_tracer = _NoTracer()
+_stamp_override = None
 
 
 def set_default_tracer(tracer) -> None:
     """Stamp every record of a log built without a ``tracer`` from
     ``tracer`` (any object with ``node_label()`` and
-    ``current_trace_id()``, as the reference's ``Tracer`` has); None
-    restores the empty stamps."""
-    global _default_tracer
-    _default_tracer = tracer if tracer is not None else _NoTracer()
+    ``current_trace_id()``) instead of the process tracer; None restores
+    the process tracer (obs/trace.py ``default_tracer()``)."""
+    global _stamp_override
+    _stamp_override = tracer
 
 
 _default = EventLog()

@@ -104,6 +104,14 @@ def nvcc_path() -> str:
     )
 
 
+def set_build_dir(path) -> None:
+    """Build and cache the libraries under ``path`` instead of the
+    package's ``_build/`` (the node's ``-compile-cache-dir``). Takes
+    effect for libraries not loaded yet in this process."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path)
+
+
 def build(sources: tuple = SOURCES,
           stem: str = "libnoise_ec_kernels") -> Path:
     """Build the library of ``sources`` unless this checkout's build exists;

@@ -1171,3 +1171,36 @@ class DeviceCodec:
         if self.sym_bytes == 2:
             return [unpack_u16_bytesliced(res[b, :, :S]) for b in range(B)]
         return [np.ascontiguousarray(res[b, :, :S]) for b in range(B)]
+
+
+def prewarm_ladder(codec: DeviceCodec, G: np.ndarray, k: int,
+                   stripe_bytes: int = 4096, max_batch: int = 8) -> int:
+    """Plan an RS(k, n) geometry before traffic arrives, so its first live
+    calls find their plans cached: the parity matrix ``G[k:]`` and the
+    recovery matrix of each single lost data share (the first k present
+    rows as basis, as ``ReedSolomon.reconstruct`` picks it) through
+    :meth:`DeviceCodec.plan_for`, then one batched parity product at each
+    power-of-two batch size up to ``max_batch``. The reference's hook of
+    the same name compiles its batch-ladder programs; these kernels are
+    shape-generic, so a plan serves every batch size and the ladder runs
+    each size once. Returns the number of ladder rungs run."""
+    from noise_ec_tpu_torch.matrix.linalg import reconstruction_matrix
+
+    G = np.asarray(G, dtype=codec.gf.dtype)
+    n = G.shape[0]
+    if n == k:
+        return 0  # no parity: nothing to plan
+    parity = G[k:]
+    codec.plan_for(parity)
+    for j in range(k):
+        basis = [i for i in range(k + 1) if i != j]
+        codec.plan_for(reconstruction_matrix(codec.gf, G, basis, [j]))
+    warmed = 0
+    B = 1
+    while B <= max_batch:
+        codec.matmul_stripes_many(
+            parity, [np.zeros((k, stripe_bytes), dtype=codec.gf.dtype)
+                     for _ in range(B)])
+        warmed += 1
+        B *= 2
+    return warmed

@@ -2,9 +2,10 @@
 
 Port of ``noise_ec_tpu.resilience.breakers``. One implementation serves
 the codec breaker (ops/dispatch.py): a device-dispatch failure (after one
-in-call retry) opens it, routing encode/reconstruct through the host
-arithmetic, and a background half-open probe re-closes it when the device
-route recovers. The per-peer breaker of the host layers will use it too.
+in-call retry) opens it, the codec refuses products with
+``CodecUnavailableError`` while it is open, and a background half-open
+probe re-closes it when the device route recovers. The per-peer breaker
+of the node's peer supervisor (resilience/peers.py) is the same class.
 
 State machine (the standard Nygard shape):
 

@@ -60,11 +60,11 @@ def _no_fallbacks() -> bool:
 @pytest.fixture
 def no_host_products(monkeypatch):
     """Fail the test if a device codec's product reaches the host
-    arithmetic (codec/rs.py's numpy-backend path)."""
+    arithmetic (codec/rs.py's numpy-backend path, ``native_matvec``)."""
     def refuse(*a, **k):
         raise AssertionError("a device codec ran a product on the host")
 
-    monkeypatch.setattr(port_rs, "host_matvec", refuse)
+    monkeypatch.setattr(port_rs, "native_matvec", refuse)
 
 
 def _events(name: str) -> list:

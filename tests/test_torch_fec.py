@@ -2,7 +2,7 @@
 (the port's NumPy copy) against the reference's, ``FEC`` on
 ``device="cpu"`` with ``bw_route="device"`` (the decode's products through
 ``DeviceCodec``, its kernels' plain versions here) and ``bw_route="host"``
-(NumPy) against the reference's ``FEC(backend="numpy")``, and the
+(the native shim) against the reference's ``FEC(backend="numpy")``, and the
 ``DeviceCodec`` decode entries (``syndrome_stripes``, ``decode1_words``,
 ``decode1_words_bytesliced``) against the reference's
 ``DeviceCodec(kernel="pallas_interpret")``. Tolerance: byte-identical
