@@ -119,7 +119,7 @@ before printing any result. Phases (one JSON line each):
    the global reconstruct, ``repair_many`` of three stripes, each held
    byte-equal to the NumPy LRC with the same tier counters; each matrix's
    ``route_for``, and encode GB/s, local-heal p50 and global-reconstruct
-   p50. These two phases and ``node`` (5 below) print their paths'
+   p50. These two phases, ``node`` and ``store`` (5 and 6 below) print their paths'
    launches on their own lines (``by_path``, ``launches``, ``by_run``);
    the kernels line keeps the main path's;
 4. times — CUDA-event medians with the L2 cache flushed between launches:
@@ -175,7 +175,27 @@ before printing any result. Phases (one JSON line each):
    launch); no geometry rate-limited and no host-only codec; then two CLI
    processes on the card (``-device cuda``): a line and a ``/send`` of a
    64 MiB file, each received byte-equal, a ceiling on every wait, both
-   processes stopped.
+   processes stopped;
+6. store, after node — the stripe store, placement and the object
+   service on the card, at ``bench.py``'s on-card sizes: RS(10,4), 16
+   stripes of 10 x 1 MiB with shards 0 and 1 of each dropped, healed by
+   one scrub cycle and one repair drain in one batched dispatch (best of
+   3 GB/s, byte-equal, K5's launches and its product's device time over
+   the window); a clean scrub cycle (one (4,10) x (10, 16 MiB) product),
+   then one flipped parity byte flagged once and restored; the LRC
+   repair storm, RS(40,16) then LRC(40,8,8) over 8 stripes of 8 KiB
+   shards, one data loss a stripe (``repair_fetch_amplification`` exactly
+   0.125, each code's heal time and routes); a 32 MiB object converted
+   from RS(10,4) to LRC(40,8,8) by a tenant policy (byte-equal, also
+   degraded); ``ObjectStore`` PUT and degraded GET of 32 MiB (best of 3
+   MB/s) and a zipfian hot-read mix over the decoded cache (hit rate, MB/s);
+   six loopback nodes in six failure domains, an 8 MiB targeted PUT (each
+   shard sent once, to its ring owner) and a GET through the gather
+   tier; two CLI processes with ``-store-dir``, ``-object-port 0`` and
+   ``-scrub-interval 1``: a 32 MiB PUT over HTTP to one, a GET from the
+   other, and again after it restarts from its store directory. Each
+   run's launches are on the phase's line (``by_run``); every engine is
+   closed and its thread joined.
 
 Each phase's line carries its seconds and its ``health``, checked after
 the phase as differences across it: no product fell back to the host
@@ -4316,6 +4336,540 @@ def phase_layer_cost(rng) -> dict:
     }
 
 
+STORE_STRIPES = 16        # bench.py's store_repair on a card (bench.py:548)
+STORE_K, STORE_N = 10, 14
+STORE_REPS = 3            # best of
+LRC_STORM_STRIPES = 8     # bench.py's lrc storm (bench.py:611)
+LRC_STORM_SHARD = 8 << 10
+OBJECT_BYTES = 32 * MIB   # bench.py's object and convert sizes on a card
+HOT_OBJECTS, HOT_BYTES = 12, 4 * MIB
+PLACEMENT_BYTES = 8 * MIB
+ENGINE_THREADS = ("noise-ec-repair", "noise-ec-scrub", "noise-ec-convert",
+                  "placement-rebalance")
+
+
+def store_counter(name: str, **labels) -> float:
+    from noise_ec_tpu_torch.obs import default_registry
+
+    return default_registry().counter(name).labels(**labels).value
+
+
+def counted_run(by_run: dict, name: str, fn):
+    """``fn()`` with the launch counts zeroed just before and read just
+    after into ``by_run[name]``."""
+    from noise_ec_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    by_run[name] = launch_counts()
+    return out
+
+
+def store_repair(rng, timer, by_run) -> dict:
+    """bench.py:534-583 at its card sizes: RS(10,4), 16 stripes of 10 x
+    1 MiB data shards (224 MiB held), shards 0 and 1 of every stripe
+    dropped, then one ``Scrubber.run_cycle`` and one
+    ``RepairEngine.drain_once``, which heal all 16 in one batched
+    dispatch; best of STORE_REPS as GB/s, byte-equal, K5's launches and
+    its product's device time (CUDA events) over the window. Returns the
+    report and the live store for :func:`scrub_verify`."""
+    from noise_ec_tpu_torch.matrix.linalg import reconstruction_matrix
+    from noise_ec_tpu_torch.store import RepairEngine, Scrubber, StripeStore
+
+    store = StripeStore()  # device="cuda"
+    engine = RepairEngine(store, batch_min=2, max_batch=2 * STORE_STRIPES)
+    scrub = Scrubber(store, engine, interval_seconds=3600.0)
+    payloads = {}
+    for i in range(STORE_STRIPES):
+        sig = i.to_bytes(8, "little") + bytes(56)
+        blob = rng.integers(0, 256, STORE_K * SHARD, dtype=np.uint8).tobytes()
+        payloads[store.put_object(sig, blob, STORE_K, STORE_N)] = blob
+
+    def break_and_repair() -> float:
+        for key in payloads:
+            store.drop_shard(key, 0)
+            store.drop_shard(key, 1)
+        b0 = store_counter("noise_ec_store_repair_batches_total")
+        s0 = store_counter("noise_ec_store_repair_batch_stripes_total")
+        t0 = time.perf_counter()
+        scrub.run_cycle()
+        healed = engine.drain_once()
+        seconds = time.perf_counter() - t0
+        check(healed == STORE_STRIPES,
+              f"store repair healed {healed}/{STORE_STRIPES}")
+        check(store_counter("noise_ec_store_repair_batches_total") == b0 + 1
+              and store_counter("noise_ec_store_repair_batch_stripes_total")
+              == s0 + STORE_STRIPES,
+              "the store repair was one batched dispatch of every stripe")
+        return seconds
+
+    counted_run(by_run, "store_repair warm", break_and_repair)
+    check(all(store.read(k) == b for k, b in payloads.items()),
+          "store repair byte-equal")
+    seconds = [counted_run(by_run, f"store_repair {i}", break_and_repair)
+               for i in range(STORE_REPS)]
+    check(all(store.read(k) == b for k, b in payloads.items()),
+          "store repair byte-equal after the timed runs")
+    launches = by_run["store_repair 0"]
+    check(launches["fused_split"] > 0, "the store repair launched K5")
+    rs = store.codec(STORE_K, STORE_N)
+    dev = rs._dev
+    R = reconstruction_matrix(rs.gf, rs.G, list(range(2, 12)), [0, 1])
+    words = rand_words(rng, (STORE_STRIPES, STORE_K, TW), dev.device)
+    product_ms = timer.median_ms(lambda: dev.matmul_words_batch(R, words))
+    del words
+    best = min(seconds)
+    return {
+        "geometry": [STORE_K, STORE_N], "stripes": STORE_STRIPES,
+        "shard_bytes": SHARD, "held_bytes": STORE_STRIPES * STORE_N * SHARD,
+        "route_for": dev.route_for(R), "seconds": seconds,
+        "gbps": STORE_STRIPES * STORE_K * SHARD / best / 1e9,
+        "k5_launches": launches["fused_split"],
+        "k5_product_ms": product_ms,
+        "k5_share": product_ms / 1e3 / best,
+    }, (store, engine, scrub, payloads)
+
+
+def scrub_verify(rng, timer, by_run, held) -> dict:
+    """A clean scrub cycle over the 16 stripes (one (4,10) x (10, 16 MiB)
+    parity product), then one byte of one parity shard flipped: the next
+    cycle flags exactly that stripe once and ``repair_corrupt`` (the
+    error-correcting restore on the host codec, as in the reference)
+    restores its bytes."""
+    store, engine, scrub, payloads = held
+    f0 = store_counter("noise_ec_store_verify_failures_total")
+    t0 = time.perf_counter()
+    clean = counted_run(by_run, "scrub_verify clean", scrub.run_cycle)
+    clean_ms = (time.perf_counter() - t0) * 1e3
+    check(clean["flagged_corrupt"] == 0 and by_run["scrub_verify clean"][
+        "fused_split"] > 0, f"a clean scrub cycle on K5 ({clean})")
+    key = next(iter(payloads))
+    want = store.snapshot(key)[1]
+    check(store.corrupt_shard(key, STORE_K + 1, lambda b: bytes(
+        [b[12345] ^ 0x40]).join((b[:12345], b[12346:]))),
+        "one parity byte flipped")
+    rot = counted_run(by_run, "scrub_verify rot", scrub.run_cycle)
+    check(rot["flagged_corrupt"] == 1 and store_counter(
+        "noise_ec_store_verify_failures_total") == f0 + 1,
+        f"the rotten stripe flagged once ({rot})")
+    fixed = engine.repair_corrupt(key)
+    check(fixed and store.snapshot(key)[1] == want,
+          "repair_corrupt restored the parity shard's bytes")
+    check(scrub.run_cycle()["flagged_corrupt"] == 0, "clean after repair")
+    rs = store.codec(STORE_K, STORE_N)
+    words = rand_words(rng, (1, STORE_K, STORE_STRIPES * TW), rs._dev.device)
+    product_ms = timer.median_ms(
+        lambda: rs._dev.matmul_words_batch(rs.G[STORE_K:], words))
+    del words
+    return {"clean_cycle_ms": clean_ms, "flagged": rot["flagged_corrupt"],
+            "route_for": rs._dev.route_for(rs.G[STORE_K:]),
+            "k5_launches": by_run["scrub_verify clean"]["fused_split"],
+            "k5_product_ms": product_ms, "restored": bool(fixed)}
+
+
+def lrc_storm(rng, by_run) -> dict:
+    """bench.py:593-636: RS(40,16) and then LRC(40,8,8), 8 stripes of 8
+    KiB shards, one data loss a stripe, scrub then drain; the repair
+    engine's ``shards_read{code}`` gives ``repair_fetch_amplification``
+    (LRC reads a heal over RS reads a heal: exactly 0.125), each code's
+    heal time and each matrix's route."""
+    from noise_ec_tpu_torch.matrix.linalg import reconstruction_matrix
+    from noise_ec_tpu_torch.store import RepairEngine, Scrubber, StripeStore
+
+    k, g, n = 40, 8, 56
+    out = {"stripes": LRC_STORM_STRIPES, "shard_bytes": LRC_STORM_SHARD}
+    per_heal = {}
+    for label, code in (("rs", "rs"), ("lrc", f"lrc:{g}")):
+        store = StripeStore()
+        engine = RepairEngine(store, linger_seconds=0.0,
+                              max_batch=2 * LRC_STORM_STRIPES)
+        scrub = Scrubber(store, engine, interval_seconds=3600.0)
+        blobs = {}
+        for i in range(LRC_STORM_STRIPES):
+            sig = (0x4C52 + i).to_bytes(4, "little") + code.encode()
+            blob = rng.integers(0, 256, k * LRC_STORM_SHARD,
+                                dtype=np.uint8).tobytes()
+            blobs[store.put_object(sig, blob, k, n, code=code)] = blob
+        r0 = store_counter("noise_ec_store_repair_shards_read_total",
+                           code=label)
+        for key in blobs:
+            store.drop_shard(key, 3)
+        t0 = time.perf_counter()
+        healed = counted_run(by_run, f"lrc_storm {label}",
+                             lambda: (scrub.run_cycle(),
+                                      engine.drain_once())[1])
+        heal_s = time.perf_counter() - t0
+        engine.close()
+        check(healed == LRC_STORM_STRIPES,
+              f"{label} storm healed {healed}/{LRC_STORM_STRIPES}")
+        check(all(store.read(key) == b for key, b in blobs.items()),
+              f"{label} storm byte-equal")
+        check(sum(by_run[f"lrc_storm {label}"].values()) > 0,
+              f"the {label} storm launched kernels")
+        per_heal[label] = (store_counter(
+            "noise_ec_store_repair_shards_read_total", code=label) - r0) / healed
+        rs = store.codec(k, n, "gf256", code)
+        # Shard 3's recovery from the other 39 data rows and its cell's
+        # local parity (row 40), invertible for both codes.
+        basis = [i for i in range(k + 1) if i != 3]
+        lost_R = reconstruction_matrix(rs.gf, rs.G, basis, [3])
+        out[label] = {"heal_seconds": heal_s, "reads_per_heal":
+                      per_heal[label], "route_for": {
+                          "parity": rs._dev.route_for(rs.G[k:]),
+                          "rs_recovery": rs._dev.route_for(lost_R)}}
+    amp = per_heal["lrc"] / per_heal["rs"]
+    check(amp == 0.125, f"repair_fetch_amplification {amp} == 0.125")
+    out["repair_fetch_amplification"] = amp
+    return out
+
+
+def object_node(port: int, **objects_kw):
+    """One loopback node: store (on the card), repair engine, plugin,
+    object service."""
+    from noise_ec_tpu_torch.host.plugin import ShardPlugin
+    from noise_ec_tpu_torch.host.transport import (
+        LoopbackHub,
+        LoopbackNetwork,
+        format_address,
+    )
+    from noise_ec_tpu_torch.service import ObjectStore
+    from noise_ec_tpu_torch.store import RepairEngine, StripeStore
+
+    node = LoopbackNetwork(LoopbackHub(),
+                           format_address("tcp", "localhost", port))
+    store = StripeStore()
+    engine = RepairEngine(store, network=node, linger_seconds=0.0)
+    plugin = ShardPlugin(store=store)
+    node.add_plugin(plugin)
+    return ObjectStore(store, plugin, node, engine=engine, **objects_kw)
+
+
+def convert_run(rng, by_run) -> dict:
+    """bench.py:640-700 at its card size: a 32 MiB object in hot RS(10,4)
+    stripes (k=10, n=14) of 1 MiB converted by the tenant policy
+    ``archive=lrc:40/8+8,age=0,stripe_bytes=4194304``: the manifest's
+    code is lrc:8 and the read is byte-equal, also with one data shard
+    dropped from every archival stripe; MB/s."""
+    from noise_ec_tpu_torch.service import TenantRegistry
+    from noise_ec_tpu_torch.store import ConversionEngine
+
+    tenants = TenantRegistry()
+    tenants.configure("cold", policy="archive=lrc:40/8+8,age=0,"
+                      f"stripe_bytes={4 * MIB}")
+    objects = object_node(4000, tenants=tenants, stripe_bytes=MIB,
+                          k=STORE_K, n=STORE_N)
+    obj = rng.integers(0, 256, OBJECT_BYTES, dtype=np.uint8).tobytes()
+    objects.put("cold", "glacier", obj)
+    conv = ConversionEngine(objects.store, tenants, repair=objects.engine)
+    t0 = time.perf_counter()
+    stats = counted_run(by_run, "convert", conv.run_cycle)
+    seconds = time.perf_counter() - t0
+    check(stats["converted"] == 1, f"converted {stats}")
+    doc = objects.resolve("cold", "glacier")
+    check(doc.get("code") == "lrc:8", f"archival manifest {doc.get('code')}")
+    check(objects.read("cold", "glacier") == obj, "converted read byte-equal")
+    for key in doc["stripes"]:
+        objects.store.drop_shard(key, 1)
+    check(counted_run(by_run, "convert degraded read",
+                      lambda: objects.read("cold", "glacier")) == obj,
+          "degraded archival read byte-equal")
+    check(by_run["convert"]["fused_split"] > 0, "the conversion launched K5")
+    conv.close()
+    objects.engine.close()
+    rs = objects.store.codec(40, 56, "gf256", "lrc:8")
+    return {"object_bytes": OBJECT_BYTES, "seconds": seconds,
+            "mb_per_s": OBJECT_BYTES / seconds / 1e6,
+            "archival_stripes": len(doc["stripes"]),
+            "route_for": {"lrc_40_8_8_parity": rs._dev.route_for(
+                rs.G[40:])}}
+
+
+def objects_run(rng, by_run) -> dict:
+    """bench.py:705-800 at its card sizes: ``ObjectStore`` at 1 MiB
+    stripes, RS(10,4); PUT of 32 MiB (best of 3 MB/s, distinct content a
+    trial, the HBM watermark not shedding); GET with shards 0-3 dropped
+    from every stripe (best of 3); then 12 objects of 4 MiB under a
+    zipfian GET mix over a 512 MiB ``DecodedObjectCache`` (hit rate, hot
+    MB/s); every byte checked."""
+    import hashlib
+
+    from noise_ec_tpu_torch.obs.device import hbm_snapshot
+    from noise_ec_tpu_torch.service import DecodedObjectCache
+
+    objects = object_node(3800, stripe_bytes=MIB, k=STORE_K, n=STORE_N)
+    base = rng.integers(0, 256, OBJECT_BYTES, dtype=np.uint8).tobytes()
+    objects.put("bench", "warm", base)
+    hbm = hbm_snapshot()
+    check(objects.shed_reason() is None,
+          f"the HBM watermark admits a 32 MiB PUT ({hbm})")
+    put_s, name, payload = [], None, None
+    for trial in range(STORE_REPS):
+        payload = base[trial + 1:] + bytes([trial]) * (trial + 1)
+        name = f"obj{trial}"
+        t0 = time.perf_counter()
+        counted_run(by_run, f"objects put {trial}",
+                    lambda: objects.put("bench", name, payload))
+        put_s.append(time.perf_counter() - t0)
+        check(objects.read("bench", name) == payload, "object put/get")
+    check(by_run["objects put 0"]["fused_split"] > 0, "the PUT launched K5")
+    doc = objects.resolve("bench", name)
+    for key in set(doc["stripes"]):
+        for shard in range(STORE_N - STORE_K):
+            objects.store.drop_shard(key, shard)
+    get_s = []
+    for trial in range(STORE_REPS):
+        t0 = time.perf_counter()
+        got = counted_run(by_run, f"objects degraded get {trial}",
+                          lambda: objects.read("bench", name))
+        get_s.append(time.perf_counter() - t0)
+        check(got == payload, "object degraded read byte-equal")
+    check(by_run["objects degraded get 0"]["fused_split"] > 0,
+          "the degraded GET launched K5")
+    objects.engine.close()
+
+    cache = DecodedObjectCache(max_bytes=512 * MIB)
+    hot = object_node(3900, stripe_bytes=MIB, k=STORE_K, n=STORE_N,
+                      cache=cache)
+    digests = {}
+    for i in range(HOT_OBJECTS):
+        blob = rng.integers(0, 256, HOT_BYTES, dtype=np.uint8).tobytes()
+        hot.put("bench", f"hot{i}", blob)
+        digests[f"hot{i}"] = hashlib.blake2b(blob, digest_size=16).digest()
+    cache.clear()
+    draws = rng.zipf(1.1, size=32 + 96)
+    for z in draws[:32]:
+        hot.read("bench", f"hot{(int(z) - 1) % HOT_OBJECTS}")
+    for i in range(HOT_OBJECTS):
+        hot.read("bench", f"hot{i}")
+    h0 = store_counter("noise_ec_object_cache_hits_total")
+    m0 = store_counter("noise_ec_object_cache_misses_total")
+    served, reads = 0, {}
+    t0 = time.perf_counter()
+    for z in draws[32:]:
+        name_z = f"hot{(int(z) - 1) % HOT_OBJECTS}"
+        _, total, chunks = hot.get_range("bench", name_z)
+        reads[name_z] = list(chunks)
+        served += total
+    hot_s = time.perf_counter() - t0
+    check(all(hashlib.blake2b(b"".join(v), digest_size=16).digest()
+              == digests[k] for k, v in reads.items()),
+          "hot cached reads byte-equal")
+    hits = store_counter("noise_ec_object_cache_hits_total") - h0
+    misses = store_counter("noise_ec_object_cache_misses_total") - m0
+    hot.engine.close()
+    return {
+        "object_bytes": OBJECT_BYTES, "geometry": [STORE_K, STORE_N],
+        "stripe_bytes": MIB, "hbm": hbm, "put_seconds": put_s,
+        "put_mb_per_s": OBJECT_BYTES / min(put_s) / 1e6,
+        "degraded_get_seconds": get_s,
+        "degraded_get_mb_per_s": OBJECT_BYTES / min(get_s) / 1e6,
+        "hot_objects": HOT_OBJECTS, "hot_object_bytes": HOT_BYTES,
+        "hot_gets": len(draws) - 32, "hot_mb_per_s": served / hot_s / 1e6,
+        "hit_rate": hits / max(1.0, hits + misses),
+    }
+
+
+def placement_run(rng, by_run) -> dict:
+    """Six loopback nodes in six failure domains (RS(4,2) needs six,
+    ``required_domains``), each with a ``TargetedDelivery`` on one ring
+    (seed 0): node 0 PUTs an 8 MiB object at 1 MiB stripes; each data
+    shard travels once, to its ring owner (the sends a stripe over n;
+    ``noise_ec_placement_fanout_saved_total``); node 3 GETs the object
+    through the gather tier, byte-equal. The nodes' directed surfaces
+    (a directory of ring tokens, a cohort send, an owner's slot fetch)
+    are the in-process stand-ins the reference's fleet lab gives its
+    nodes."""
+    from noise_ec_tpu_torch.obs.trace import trace_key
+    from noise_ec_tpu_torch.placement import (
+        PlacementRing,
+        TargetedDelivery,
+        Topology,
+    )
+    from noise_ec_tpu_torch.placement.ring import required_domains
+    from noise_ec_tpu_torch.host.plugin import ShardPlugin
+    from noise_ec_tpu_torch.host.transport import (
+        LoopbackHub,
+        LoopbackNetwork,
+        format_address,
+    )
+    from noise_ec_tpu_torch.service import ObjectStore
+    from noise_ec_tpu_torch.store import StripeStore
+
+    k, n = 4, 6
+    hub = LoopbackHub()
+    tokens = [format_address("tcp", "localhost", 4400 + i) for i in range(6)]
+    check(required_domains(k, n) == len(tokens), "RS(4,2) needs six domains")
+    ring = PlacementRing(Topology.parse(";".join(
+        f"domain=d{i}:{tok}" for i, tok in enumerate(tokens))), seed=0)
+    nets, stores, services, sends = {}, {}, [], []
+    for tok in tokens:
+        net = LoopbackNetwork(hub, tok)
+        store = StripeStore()
+        plugin = ShardPlugin(store=store)
+        net.add_plugin(plugin)
+        plugin.placement = TargetedDelivery(ring, self_token=tok)
+        nets[tok], stores[tok] = net, store
+        services.append(ObjectStore(store, plugin, net, stripe_bytes=MIB,
+                                    k=k, n=n, fetch_timeout_seconds=5.0))
+
+    for tok, net in nets.items():
+        def send_many_to(dest, msgs, _net=net):
+            for m in msgs:
+                sends.append((trace_key(m.file_signature), m.shard_number,
+                              dest))
+                nets[dest].deliver(m.marshal(), _net.id)
+            return True
+
+        def fetch(dest, key):
+            _, shards, _ = stores[dest].snapshot(key)
+            return {i: b for i, b in enumerate(shards) if b is not None}
+
+        net.placement_directory = (
+            lambda _tok=tok: {t: t for t in tokens if t != _tok})
+        net.send_many_to = send_many_to
+        net.placement_fetch = fetch
+
+    def saved() -> float:
+        return store_counter("noise_ec_placement_fanout_saved_total")
+
+    s0 = saved()
+    payload = rng.integers(0, 256, PLACEMENT_BYTES, dtype=np.uint8).tobytes()
+    doc = counted_run(by_run, "placement put",
+                      lambda: services[0].put("acme", "placed.bin", payload))
+    stripes = doc["stripes"]
+    for key in stripes:
+        owners = ring.owners(key, n, k=k, alive=set(tokens))
+        sent = [(num, dest) for skey, num, dest in sends if skey == key]
+        want = [(num, owners[num]) for num in range(n)
+                if owners[num] not in (None, tokens[0])]
+        check(sorted(sent) == sorted(want),
+              f"stripe {key}: each shard sent once, to its owner")
+    data_sends = sum(1 for skey, _, _ in sends if skey in stripes)
+    g0 = store_counter("noise_ec_object_read_route_total", route="gather")
+    got = counted_run(by_run, "placement gather get",
+                      lambda: services[3].read("acme", "placed.bin"))
+    gathers = store_counter("noise_ec_object_read_route_total",
+                            route="gather") - g0
+    check(got == payload, "the gathered GET byte-equal")
+    check(gathers > 0, "node 3 read through the gather tier")
+    return {"nodes": len(tokens), "geometry": [k, n],
+            "object_bytes": PLACEMENT_BYTES, "stripes": len(stripes),
+            "data_sends_per_stripe_over_n": data_sends / len(stripes) / n,
+            "fanout_saved": saved() - s0, "gather_stripes": gathers}
+
+
+def store_cli(rng) -> dict:
+    """Two CLI processes on the card, each with ``-store-dir``,
+    ``-object-port 0`` and ``-scrub-interval 1``: a 32 MiB PUT over HTTP
+    to A, a GET from B, B restarted from its store directory and a GET
+    again, each byte-equal, with a ceiling on every wait."""
+    import tempfile
+    import urllib.error
+    import urllib.request
+
+    def object_url(node) -> str:
+        node.wait_for("object service on ", NODE_WAIT_S)
+        line = next(ln for ln in node.lines if "object service on " in ln)
+        return line.split("object service on ")[1].split("/objects")[0]
+
+    def get(url: str) -> bytes:
+        deadline = time.monotonic() + NODE_WAIT_S
+        while True:
+            try:
+                with urllib.request.urlopen(url, timeout=NODE_WAIT_S) as r:
+                    return r.read()
+            except urllib.error.HTTPError:
+                check(time.monotonic() < deadline,
+                      f"GET {url} within {NODE_WAIT_S:g} s")
+                time.sleep(0.1)
+
+    payload = rng.integers(0, 256, OBJECT_BYTES, dtype=np.uint8).tobytes()
+    store_args = ("-object-port", "0", "-scrub-interval", "1")
+    out = {"object_bytes": OBJECT_BYTES}
+    with tempfile.TemporaryDirectory(prefix="noise_ec_store_") as tmp:
+        pa, pb = free_ports(2)
+        started = []
+        try:
+            t0 = time.perf_counter()
+            b = CliNode(pb, "-store-dir", os.path.join(tmp, "b"), *store_args)
+            started.append(b)
+            url_b = object_url(b)
+            a = CliNode(pa, "-store-dir", os.path.join(tmp, "a"),
+                        "-peers", f"tcp://127.0.0.1:{pb}", *store_args)
+            started.append(a)
+            url_a = object_url(a)
+            b.wait_for(f"registered peer tcp://127.0.0.1:{pa}", NODE_WAIT_S)
+            out["start_seconds"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            req = urllib.request.Request(url_a + "/objects/acme/big.bin",
+                                         data=payload, method="PUT")
+            with urllib.request.urlopen(req, timeout=NODE_CLI_SEND_S) as r:
+                check(r.status == 201, f"PUT answered {r.status}")
+            out["put_seconds"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            check(get(url_b + "/objects/acme/big.bin") == payload,
+                  "GET from B byte-equal")
+            out["get_b_seconds"] = time.perf_counter() - t0
+            b.stop()
+            out["b_rc"] = b.proc.returncode
+            t0 = time.perf_counter()
+            b2 = CliNode(pb, "-store-dir", os.path.join(tmp, "b"),
+                         "-object-port", "0")
+            started.append(b2)
+            url_b2 = object_url(b2)
+            out["restart_seconds"] = time.perf_counter() - t0
+            loaded = next(ln for ln in b2.lines if "stripes loaded" in ln)
+            out["restart_stripes_loaded"] = int(
+                re.search(r"(\d+) stripes loaded", loaded).group(1))
+            t0 = time.perf_counter()
+            check(get(url_b2 + "/objects/acme/big.bin") == payload,
+                  "GET from the restarted B byte-equal")
+            out["get_restarted_seconds"] = time.perf_counter() - t0
+        finally:
+            for node in started:
+                node.stop()
+        rcs = [node.proc.returncode for node in started]
+    check(rcs == [0, 0, 0], f"every CLI node exited 0 ({rcs})")
+    out["put_mb_per_s"] = OBJECT_BYTES / out["put_seconds"] / 1e6
+    return out
+
+
+def phase_store(rng, device) -> dict:
+    """The stripe store, placement and the object service on the card
+    (module docstring, phase ``store``): :func:`store_repair`,
+    :func:`scrub_verify`, :func:`lrc_storm`, :func:`convert_run`,
+    :func:`objects_run`, :func:`placement_run` and :func:`store_cli`,
+    each run's launches on this phase's line (``by_run``); every engine
+    closed and its thread joined."""
+    import gc
+
+    timer = Timer(device)
+    by_run: dict = {}
+    report = {"phase": "store", "nvidia_smi": nvidia_smi(), "runs": {}}
+    runs = report["runs"]
+    runs["store_repair"], held = store_repair(rng, timer, by_run)
+    runs["scrub_verify"] = scrub_verify(rng, timer, by_run, held)
+    held[1].close()
+    del held
+    runs["lrc_storm"] = lrc_storm(rng, by_run)
+    runs["convert"] = convert_run(rng, by_run)
+    runs["objects"] = objects_run(rng, by_run)
+    runs["placement"] = placement_run(rng, by_run)
+    runs["cli"] = store_cli(rng)
+    del timer
+    gc.collect()
+    left = [t.name for t in threading.enumerate()
+            if t.name in ENGINE_THREADS and t.is_alive()]
+    check(not left, f"every engine thread joined ({left})")
+    report["by_run"] = {name: {n: c for n, c in counts.items() if c}
+                        for name, counts in by_run.items()}
+    report["k5_launches"] = sum(c.get("fused_split", 0)
+                                for c in by_run.values())
+    check(report["k5_launches"] > 0, "the store phase launched K5")
+    return report
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4437,9 +4991,10 @@ def main() -> int:
         timed(phase_dense_sweep, rng, device)
     if args.pack_sweep:
         timed(phase_pack_sweep, rng, device)
-    # The node runs last: its host threads, sockets and 64 MiB objects
-    # stay out of every timed phase's process state.
+    # The node and the store run last: their host threads, sockets and
+    # large objects stay out of every timed phase's process state.
     timed(phase_node, rng, device)
+    timed(phase_store, rng, device)
     kernels = []
     for name, res in results.items():
         res["launches"] = main_path["launches"][name]

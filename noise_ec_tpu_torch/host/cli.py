@@ -20,11 +20,15 @@ with ``-recv-dir DIR``, save it under a content-hash name. Flags mirror
 the reference (`-port -host -protocol -peers`, main.go:121-124); the
 codec backend, trace, recv-dir, and chunk-size flags are new.
 
-The flags of the modules the port does not carry yet (the stripe store,
-placement, the object service, metrics federation, the flight recorder,
-the trace collector, the chaos proxy and the fleet lab) stay in the
-parser, so ``--help`` lists what the reference's does; setting one away
-from its default exits with status 2 (:data:`NOT_PORTED_FLAGS`).
+The stripe store (``-store-dir``, ``-scrub-interval``,
+``-announce-interval``), placement (``-topology``) and the object service
+(``-object-port``, ``-object-cache-mb``, ``-tenants``,
+``-convert-interval``) run as in the reference, their codecs on
+``-backend``/``-device`` like the plugin's. The flags of the modules the
+port does not carry yet (metrics federation, the flight recorder, the
+trace collector, the chaos proxy and the fleet lab) stay in the parser, so
+``--help`` lists what the reference's does; setting one away from its
+default exits with status 2 (:data:`NOT_PORTED_FLAGS`).
 """
 
 from __future__ import annotations
@@ -50,11 +54,9 @@ log = logging.getLogger("noise_ec_tpu_torch.host.cli")
 # Flags whose modules the port does not carry yet (ROADMAP queue 1 item
 # 5); any of them set away from its default refuses the run.
 NOT_PORTED_FLAGS = (
-    "store_dir", "scrub_interval", "announce_interval", "object_port",
-    "object_cache_mb", "tenants", "convert_interval", "chaos_profile",
-    "chaos_seed", "fleet_profile", "fleet_size", "fleet_report",
-    "trace_peers", "collect_traces", "collect_interval", "federate",
-    "federate_interval", "topology", "incident_dir",
+    "chaos_profile", "chaos_seed", "fleet_profile", "fleet_size",
+    "fleet_report", "trace_peers", "collect_traces", "collect_interval",
+    "federate", "federate_interval", "incident_dir",
 )
 
 
@@ -361,9 +363,9 @@ def main(argv: list[str] | None = None) -> int:
     ]
     if owed:
         log.error(
-            "%s: not ported yet (ROADMAP queue 1 item 5: the stripe store, "
-            "placement, object service, federation, flight recorder, trace "
-            "collector, chaos proxy and fleet lab)", " ".join(owed),
+            "%s: not ported yet (ROADMAP queue 1 item 5: federation, "
+            "flight recorder, trace collector, chaos proxy and fleet lab)",
+            " ".join(owed),
         )
         return 2
 
@@ -379,6 +381,11 @@ def main(argv: list[str] | None = None) -> int:
     keys = KeyPair.random()  # fresh identity per run, main.go:132
     log.info("private key: %s", keys.private_key_hex())
     log.info("public key: %s", keys.public_key_hex())
+
+    net = TCPNetwork(
+        host=args.host, port=args.port, keys=keys, protocol=args.protocol,
+        recv_shards=args.recv_shards,
+    )
 
     def on_message(message: bytes, sender: PeerID) -> None:
         # The reference logs the full hex dump (main.go:92); for streamed
@@ -412,22 +419,104 @@ def main(argv: list[str] | None = None) -> int:
             except OSError as exc:
                 log.error("could not save received object: %s", exc)
 
+    store = scrubber = engine = None
+    if (
+        args.store_dir or args.scrub_interval > 0
+        or args.announce_interval > 0 or args.object_port >= 0
+    ):
+        from noise_ec_tpu_torch.store import StripeStore
+
+        # The store's codecs run where the plugin's do.
+        store = StripeStore(
+            args.store_dir or None, backend=args.backend, device=args.device
+        )
+
     plugin = ShardPlugin(
-        backend=args.backend, device=args.device, on_message=on_message
+        backend=args.backend, device=args.device, on_message=on_message,
+        store=store,
     )
     try:
         # Plan the default geometry before traffic arrives; with
         # -compile-cache-dir, also pre-warm the batch ladder.
         plugin.prewarm(ladder=ladder)
+        if store is not None:
+            store.codec(plugin.minimum_needed_shards, plugin.total_shards)
     except RuntimeError as exc:  # no card, a kernel that does not build
         log.error("codec unavailable on %s: %s", args.device, exc)
+        net.close()
         return 1
 
-    net = TCPNetwork(
-        host=args.host, port=args.port, keys=keys, protocol=args.protocol,
-        recv_shards=args.recv_shards,
-    )
+    if store is not None:
+        from noise_ec_tpu_torch.store import RepairEngine, Scrubber
+
+        engine = RepairEngine(
+            store, network=net,
+            announce_interval_seconds=args.announce_interval,
+        )
+        engine.start()
+        if args.scrub_interval > 0:
+            scrubber = Scrubber(
+                store, engine, interval_seconds=args.scrub_interval
+            )
+            scrubber.start()
+        log.info(
+            "stripe store enabled (%s, %d stripes loaded, scrub %s)",
+            args.store_dir or "in-memory",
+            len(store),
+            f"every {args.scrub_interval}s" if args.scrub_interval > 0
+            else "disabled",
+        )
     net.add_plugin(plugin)
+
+    rebalancer = None
+    if args.topology:
+        from noise_ec_tpu_torch.placement import (
+            PlacementRing,
+            Rebalancer,
+            TargetedDelivery,
+            Topology,
+        )
+        from noise_ec_tpu_torch.placement.rebalance import (
+            register_domain_gauges,
+        )
+
+        topology = Topology.parse(args.topology)
+        # Seed pinned to 0: every node given the same -topology (port or
+        # reference) MUST compute the same shard->peer map, or targeted
+        # delivery and gather disagree about owners.
+        ring = PlacementRing(topology, seed=0)
+        plugin.placement = TargetedDelivery(ring, self_token=net.id.address)
+        log.info(
+            "placement ring active: %d failure domains, %d peers "
+            "(docs/placement.md)",
+            len(topology.names()), len(topology.all_peers()),
+        )
+        if store is not None:
+            def _rebalance_send(token, msgs, _net=net):
+                pk = _net.placement_directory().get(token)
+                return pk is not None and _net.send_many_to(pk, msgs)
+
+            rebalancer = Rebalancer(
+                store, ring,
+                self_token=net.id.address,
+                send=_rebalance_send,
+                self_public_key=keys.public_key,
+                repair=engine,
+            ).start()
+            register_domain_gauges(
+                lambda d, _rb=rebalancer: float(
+                    _rb.census()
+                    if ring.topology.domain_of(net.id.address) == d
+                    else 0
+                ),
+                topology.names(),
+            )
+            if net.supervisor is not None:
+                def _on_membership(address, up, _rb=rebalancer):
+                    (_rb.note_up if up else _rb.note_down)(address)
+
+                net.supervisor.add_membership_listener(_on_membership)
+
     net.listen()  # background accept loop (go net.Listen(), main.go:169)
     log.info("listening for peers on %s", net.id.address)
 
@@ -482,6 +571,59 @@ def main(argv: list[str] | None = None) -> int:
     if args.stats_interval > 0:
         reporter = PeriodicReporter(args.stats_interval, stats_snapshot, log)
 
+    object_server = converter = None
+    if args.object_port >= 0:
+        from noise_ec_tpu_torch.service import (
+            DecodedObjectCache,
+            ObjectAPI,
+            ObjectStore,
+            TenantRegistry,
+        )
+
+        tenants = (
+            TenantRegistry.from_file(args.tenants) if args.tenants
+            else TenantRegistry()
+        )
+        cache = None
+        if args.object_cache_mb > 0:
+            cache = DecodedObjectCache(max_bytes=args.object_cache_mb << 20)
+        objects = ObjectStore(
+            store, plugin, net,
+            tenants=tenants, engine=engine, slo=default_slo(), cache=cache,
+        )
+        # The object API rides a StatsServer, so PORT serves /objects
+        # alongside /metrics and /healthz: one scrape-and-serve surface
+        # per node.
+        object_server = StatsServer(
+            port=args.object_port,
+            extra_counters={"noise_ec_plugin": plugin.counters},
+            slo=default_slo(),
+            health_details=(
+                net.supervisor.health_summary
+                if net.supervisor is not None else None
+            ),
+        )
+        ObjectAPI(objects).mount(object_server)
+        # Warm-peer routing: advertise this node's warm addresses on the
+        # announce loop so peers can serve hot reads from each other's
+        # decoded caches before touching shards.
+        objects.enable_peer_routing(object_server.url)
+        log.info("object service on %s/objects (%d tenants configured)",
+                 object_server.url, len(tenants.names()))
+        if args.convert_interval > 0:
+            from noise_ec_tpu_torch.store import ConversionEngine
+
+            converter = ConversionEngine(
+                store, tenants, cache=cache, repair=engine,
+                interval_seconds=args.convert_interval,
+            )
+            converter.start()
+            log.info(
+                "hot->archival conversion every %gs (per-tenant "
+                "'policy' drives the tier, docs/lrc.md)",
+                args.convert_interval,
+            )
+
     peers = [a for a in args.peers.split(",") if a]
     if peers:
         net.bootstrap(peers)
@@ -517,8 +659,18 @@ def main(argv: list[str] | None = None) -> int:
     except KeyboardInterrupt:
         pass
     finally:
+        if converter is not None:
+            converter.close()
+        if rebalancer is not None:
+            rebalancer.close()
+        if scrubber is not None:
+            scrubber.close()
+        if engine is not None:
+            engine.close()
         if reporter is not None:
             reporter.close()
+        if object_server is not None:
+            object_server.close()
         if stats_server is not None:
             stats_server.close()
         if sampler is not None:

@@ -143,9 +143,17 @@ def test_codec_breaker_retry_trip_refuse_and_reclose(rng, monkeypatch,
     on the host; while open, the device is not tried and each product is
     refused at once with reason="open"; with the fault gone the prober's
     canary re-closes it on the codec's device, and encode and reconstruct
-    give the golden codec's bytes on the device again."""
+    give the golden codec's bytes on the device again.
+
+    The breaker reads a clock the test drives: it stands still from the
+    trip to the end of the fault, so the breaker cannot turn half-open
+    (and hand the probe to the test's own call or race the canary) while
+    the refusals are asserted, however slowly the test runs; then it is
+    moved past the reset timeout, and the canary re-closes the breaker."""
+    now = [time.monotonic()]
     br = dispatch.configure_codec_breaker(reset_timeout=0.2,
-                                          max_reset_timeout=1.0)
+                                          max_reset_timeout=1.0,
+                                          clock=lambda: now[0])
     rs = ReedSolomon(10, 4, device="cpu")
     data = [rng.integers(0, 256, 4096, dtype=np.uint8) for _ in range(10)]
     want = list(GoldenCodec(10, 14).encode_all(np.stack(data)))
@@ -180,6 +188,7 @@ def test_codec_breaker_retry_trip_refuse_and_reclose(rng, monkeypatch,
         assert port_registry.default_registry().gauge(
             "noise_ec_codec_circuit_state").labels().read() in (1.0, 2.0)
     assert DeviceCodec.matmul_stripes_many is real
+    now[0] += 1.0  # past the reset timeout: the canary may probe
     deadline = time.monotonic() + 30
     while time.monotonic() < deadline and not br.closed:
         time.sleep(0.02)

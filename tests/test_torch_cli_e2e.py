@@ -5,7 +5,10 @@ line (main.go:92). Two port nodes over TCP and over KCP, one on
 ``-backend device -device cpu`` and one on ``-backend numpy``, exchange a
 line each way and a ``/send`` of a file that spans chunks (and the
 receiver's stats server answers ``/metrics``, ``/healthz`` and
-``/events``); a flag whose module is not ported yet exits with status 2;
+``/events``); two store-backed nodes serve an object PUT over HTTP to
+one from the other, also after a restart from the store directory, one
+node runs with all eight of those modules' flags, and a store-backed
+node on the default ``-device cuda`` exits 1 without a card; a flag whose module is not ported yet exits with status 2;
 and a port node and a reference node (``python -m noise_ec_tpu.host.cli
 -backend numpy``) exchange a line each way over TCP — the wire interop."""
 
@@ -17,6 +20,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import pytest
@@ -168,7 +172,8 @@ def test_two_port_nodes_exchange_lines_and_a_file(nodes, tmp_path, protocol):
             "node", "epoch", "next_since", "events"}
 
 
-@pytest.mark.parametrize("flag", [["-store-dir", "x"], ["-object-port", "0"],
+@pytest.mark.parametrize("flag", [["-trace-peers", "http://127.0.0.1:1"],
+                                  ["-fleet-profile", "object=1"],
                                   ["-chaos-profile", "drop=0.1"],
                                   ["-federate-interval", "3"]])
 def test_flag_of_an_unported_module_exits_2(flag):
@@ -216,3 +221,99 @@ def test_port_and_reference_nodes_exchange_lines(nodes):
     ref.send_line(back)
     port.wait_for(f"message from tcp://127.0.0.1:{pr}: {back.encode().hex()}",
                   MESSAGE_TIMEOUT)
+
+
+def _object_url(node: Node) -> str:
+    line = node.wait_for("object service on ", NODE_START_TIMEOUT)
+    return line.split("object service on ")[1].split("/objects")[0]
+
+
+def _get_object(url: str, timeout: float = MESSAGE_TIMEOUT) -> bytes:
+    """GET with retries until the object's manifest has replicated."""
+    deadline = time.monotonic() + timeout
+    while True:
+        try:
+            with urllib.request.urlopen(url, timeout=30) as resp:
+                return resp.read()
+        except urllib.error.HTTPError:
+            if time.monotonic() > deadline:
+                raise
+            time.sleep(0.1)
+
+
+def test_store_backed_nodes_serve_objects_across_a_restart(nodes, tmp_path):
+    """Two port nodes (device backend, CPU) with a stripe store each,
+    the object service and a scrubber: an object PUT over HTTP to A is
+    served byte-identically by B, and again by B restarted from its
+    store directory."""
+    pa, pb = _free_ports(2)
+    store_b = str(tmp_path / "b")
+    args = ("-object-port", "0", "-scrub-interval", "1")
+    b = nodes(PORT_CLI, pb, *DEVICE_CPU, "-store-dir", store_b, *args)
+    url_b = _object_url(b)
+    a = nodes(PORT_CLI, pa, *DEVICE_CPU, "-store-dir", str(tmp_path / "a"),
+              *args, peers=f"tcp://127.0.0.1:{pb}")
+    url_a = _object_url(a)
+    b.wait_for(f"registered peer tcp://127.0.0.1:{pa}", REGISTRATION_TIMEOUT)
+    payload = os.urandom(600_000)
+    req = urllib.request.Request(url_a + "/objects/acme/big.bin",
+                                 data=payload, method="PUT")
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        assert resp.status == 201
+        doc = json.loads(resp.read())
+    assert doc["size"] == len(payload) and (doc["k"], doc["n"]) == (4, 6)
+    assert _get_object(url_b + "/objects/acme/big.bin") == payload
+    b.stop()
+    b2 = nodes(PORT_CLI, pb, *DEVICE_CPU, "-store-dir", store_b,
+               "-object-port", "0")
+    url_b2 = _object_url(b2)
+    b2.wait_for("stripes loaded", NODE_START_TIMEOUT)
+    with urllib.request.urlopen(url_b2 + "/objects/acme/big.bin",
+                                timeout=60) as resp:
+        assert resp.read() == payload
+    assert b.proc.returncode == 0
+
+
+def test_store_node_on_the_card_exits_1_without_one(tmp_path):
+    """-store-dir with the default -device cuda: no card, exit 1 with
+    the codec's error; it never falls back to the host."""
+    import torch
+
+    if torch.cuda.is_available():  # pragma: no cover - a card's host
+        pytest.skip("a CUDA device is present")
+    (port,) = _free_ports(1)
+    proc = subprocess.run(
+        [sys.executable, "-m", PORT_CLI, "-port", str(port), "-host",
+         "127.0.0.1", "-store-dir", str(tmp_path / "s"), "-object-port", "0"],
+        capture_output=True, text=True, cwd=REPO, timeout=120,
+        stdin=subprocess.DEVNULL,
+    )
+    assert proc.returncode == 1
+    assert "codec unavailable on cuda" in proc.stderr
+
+
+def test_every_store_flag_starts_a_node(nodes, tmp_path):
+    """One node with all eight store, placement and object-service flags
+    set: the ring, the conversion loop and the tenants are up, and an
+    object PUT to a configured tenant reads back byte-identically."""
+    (port,) = _free_ports(1)
+    tenants = tmp_path / "tenants.json"
+    tenants.write_text(json.dumps({"tenants": {"acme": {
+        "max_bytes": 1 << 30, "policy": "archive=lrc:8/2+2,age=3600"}}}))
+    node = nodes(PORT_CLI, port, *DEVICE_CPU,
+                 "-store-dir", str(tmp_path / "s"), "-object-port", "0",
+                 "-scrub-interval", "1", "-announce-interval", "1",
+                 "-object-cache-mb", "16", "-tenants", str(tenants),
+                 "-convert-interval", "1",
+                 "-topology", f"domain=d0:tcp://127.0.0.1:{port}")
+    url = _object_url(node)
+    node.wait_for("placement ring active: 1 failure domains",
+                  NODE_START_TIMEOUT)
+    node.wait_for("hot->archival conversion every 1s", NODE_START_TIMEOUT)
+    node.wait_for("(1 tenants configured)", NODE_START_TIMEOUT)
+    payload = os.urandom(100_000)
+    req = urllib.request.Request(url + "/objects/acme/x.bin", data=payload,
+                                 method="PUT")
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        assert resp.status == 201
+    assert _get_object(url + "/objects/acme/x.bin") == payload

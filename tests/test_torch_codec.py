@@ -292,6 +292,15 @@ def _is_reference(name: str) -> bool:
         or name.startswith("noise_ec_tpu.")
 
 
+# The stripe store, placement and the object service: both checks below
+# must reach each of their modules.
+_STORAGE_MODULES = [("store", "stripe"), ("store", "scrub"), ("store", "repair"),
+             ("store", "convert"), ("placement", "ring"),
+             ("placement", "deliver"), ("placement", "rebalance"),
+             ("service", "tenants"), ("service", "cache"),
+             ("service", "objects"), ("service", "http")]
+
+
 def test_no_jax_or_reference_imports_in_the_port_source():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
@@ -300,6 +309,8 @@ def test_no_jax_or_reference_imports_in_the_port_source():
             PORT / "golden" / "codec.py", PORT / "matrix" / "bw.py",
             PORT / "codec" / "fec.py",
             PORT / "tools" / "hwcheck.py"} <= set(files)
+    assert {PORT / group / f"{name}.py" for group, name in _STORAGE_MODULES} \
+        <= set(files)
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
@@ -323,6 +334,8 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
             "noise_ec_tpu_torch.matrix.bw",
             "noise_ec_tpu_torch.codec.fec",
             "noise_ec_tpu_torch.tools.hwcheck"} <= set(mods)
+    assert {f"noise_ec_tpu_torch.{group}.{name}"
+            for group, name in _STORAGE_MODULES} <= set(mods)
     code = (
         "import sys, importlib\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
