@@ -195,7 +195,39 @@ before printing any result. Phases (one JSON line each):
    ``-scrub-interval 1``: a 32 MiB PUT over HTTP to one, a GET from the
    other, and again after it restarts from its store directory. Each
    run's launches are on the phase's line (``by_run``); every engine is
-   closed and its thread joined.
+   closed and its thread joined;
+7. chaos_obs, after store — the failure and observability layers through
+   the reference's own CLI flags: two CLI processes on the card at
+   RS(4,2); B dials A through ``-chaos-profile`` (5% drop, 1% corrupt, a
+   reset 2 s and a 2 s partition of A's payloads 4 s into the send, a
+   fixed ``-chaos-seed``), pulls A's spans (``-trace-peers``,
+   ``-collect-traces``), federates both nodes' ``/metrics``
+   (``-federate``) and saves what it receives (``-recv-dir``); both keep
+   a stripe store and a flight recorder (``-incident-dir``) and A
+   announces its stripes. A broadcasts 200 lines of 64 KiB: all 200 must
+   arrive byte-equal (reconnect, NACK repair, announce), B's ``/healthz``
+   must go 503 and back to 200, exactly one bundle must be written (on
+   the flip), the merged trace must hold both nodes, ``/fleet/metrics``
+   must sum both nodes' ``noise_ec_kernel_calls_total`` and
+   ``/diagnose`` answer; each node must launch K5 (its
+   ``noise_ec_kernel_launches`` gauge on ``/metrics``) and refuse
+   nothing;
+8. fleet, last — a 200-peer ``FleetLab`` (fanout 6, 500 messages, 90%
+   chat, ``lossy``) with every peer's plugin and store on the card:
+   delivery >= 0.999, sheds apart from losses, msgs/s, object MB/s, e2e
+   p50/p99, K5's launches and its device time over the run from a
+   torch.profiler trace of the run (and the share of the wall it and all
+   device work take), the gate's peak depth, the process's threads and
+   the peers' pinned staging bytes, the report JSON and its Perfetto
+   trace, no device failure among the lab's errors; then the straggler
+   drill (24 peers, a slow owner, hedged GETs through
+   ``placement_fetch``), on the card and then on numpy peers with the
+   same seed: its hedge counters, the tenant GET p99, and the GET
+   outcomes: the run's hot GETs (a read of an object whose manifest never
+   reached the reader is "missing", by the lab's traffic; none may fail
+   after it resolves or return wrong bytes) and the post-run reads of
+   every put object from every expected receiver, which must all return
+   its bytes.
 
 Each phase's line carries its seconds and its ``health``, checked after
 the phase as differences across it: no product fell back to the host
@@ -4870,6 +4902,462 @@ def phase_store(rng, device) -> dict:
     return report
 
 
+CHAOS_MSGS = 200              # the reference soak's broadcast
+CHAOS_MSG_BYTES = 64 << 10
+CHAOS_GAP_S = 0.03            # between lines: the 6 s send window
+CHAOS_SEED = 1234             # straddles the faults
+# The proxy's schedule runs from its start in B, not from B's
+# registration, so the send starts CHAOS_LEAD_S into it: the reset comes
+# 2 s and the partition 4-6 s into the send, whenever B registered.
+CHAOS_LEAD_S = 10.0
+CHAOS_PROFILE = "drop=0.05,corrupt=0.01,reset@12,partition@14:2:b2a"
+CHAOS_WAIT_S = 180.0          # delivery, and /healthz back to 200
+FLEET_PROFILE = "peers=200,fanout=6,msgs=500,chat=0.9,object=0.1,chaos=lossy"
+FLEET_STRAGGLER = ("peers=24,fanout=4,msgs=64,object=1,get=2,"
+                   "object_bytes=8192,stripe_bytes=4096,k=4,n=8,chaos=clean,"
+                   "domains@8,slow@2:120:30")
+FLEET_SEED = 11
+
+
+def scrape(url: str) -> str:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=10) as resp:
+        return resp.read().decode()
+
+
+def family_total(text: str, family: str) -> float:
+    """The sum of every sample of a counter family in an exposition."""
+    total = 0.0
+    for line in text.splitlines():
+        if line.startswith(family + "{") or line.startswith(family + " "):
+            total += float(line.rsplit(" ", 1)[1])
+    return total
+
+
+def launch_gauges(text: str) -> dict:
+    """The nonzero ``noise_ec_kernel_launches{kernel}`` samples of an
+    exposition, by kernel."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith('noise_ec_kernel_launches{kernel="'):
+            labels, value = line.rsplit(" ", 1)
+            if float(value):
+                out[labels.split('"')[1]] = int(float(value))
+    return out
+
+
+def http_status(url: str) -> int:
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=5) as resp:
+            return resp.status
+    except urllib.error.HTTPError as exc:
+        return exc.code
+    except OSError:
+        return 0
+
+
+def e2e_outcomes(url: str) -> dict:
+    """A node's end-to-end outcomes so far (its
+    ``noise_ec_e2e_latency_seconds`` counts by ``outcome``)."""
+    return {line.split('"')[1]: int(float(line.rsplit(" ", 1)[1]))
+            for line in scrape(url + "/metrics").splitlines()
+            if line.startswith('noise_ec_e2e_latency_seconds_count{outcome="')}
+
+
+def http_body(url: str) -> str:
+    """The body a GET of ``url`` returns, whatever its status."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=5) as resp:
+            return resp.read().decode()
+    except urllib.error.HTTPError as exc:
+        return exc.read().decode()
+
+
+def log_value(node: CliNode, prefix: str):
+    """The Python literal logged after ``prefix`` on the node's last line
+    that holds it."""
+    import ast
+
+    for line in reversed(node.lines):
+        if prefix in line:
+            return ast.literal_eval(line.split(prefix, 1)[1].strip())
+    check(False, f"node log line {prefix!r}")
+
+
+def phase_chaos_obs(rng) -> dict:
+    """Two port CLI processes on the card at RS(4,2) (module docstring,
+    phase ``chaos_obs``): B dials A through ``-chaos-profile``, pulls A's
+    spans (``-trace-peers``), federates both nodes' metrics
+    (``-federate``) and saves what it receives (``-recv-dir``); both keep
+    a stripe store and a flight recorder (``-incident-dir``), A announces
+    its stripes. A broadcasts CHAOS_MSGS lines of 64 KiB while the proxy
+    drops, corrupts, resets and partitions; every one must arrive
+    byte-equal, ``/healthz`` of B must go 503 and back to 200, exactly one
+    bundle must be written, the merged trace must hold both nodes, the
+    fleet view must sum both nodes' counters and ``/diagnose`` answer;
+    each node must launch K5, refuse nothing and stay closed."""
+    import glob
+    import hashlib
+    import tempfile
+
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz"
+                            b"ABCDEFGHIJKLMNOPQRSTUVWXYZ", np.uint8)
+    lines = [letters[rng.integers(0, len(letters), CHAOS_MSG_BYTES)]
+             .tobytes().decode() for _ in range(CHAOS_MSGS)]
+    names = {hashlib.blake2b(m.encode(), digest_size=8).hexdigest(): m
+             for m in lines}
+    check(len(names) == CHAOS_MSGS, "distinct chaos payloads")
+    report = {"phase": "chaos_obs", "nvidia_smi": nvidia_smi(),
+              "geometry": [4, 6], "messages": CHAOS_MSGS,
+              "message_bytes": CHAOS_MSG_BYTES, "profile": CHAOS_PROFILE,
+              "seed": CHAOS_SEED}
+    with tempfile.TemporaryDirectory(prefix="noise_ec_chaos_") as tmp:
+        pa, pb, ma, mb = free_ports(4)
+        url_a = f"http://127.0.0.1:{ma}"
+        url_b = f"http://127.0.0.1:{mb}"
+        recv = os.path.join(tmp, "recv")
+        merged = os.path.join(tmp, "merged.json")
+        started = []
+        seen: list = []
+        stop = threading.Event()
+        try:
+            t0 = time.perf_counter()
+            a = CliNode(pa, "-metrics-port", str(ma),
+                        "-store-dir", os.path.join(tmp, "sa"),
+                        "-announce-interval", "0.25",
+                        "-incident-dir", os.path.join(tmp, "ia"))
+            started.append(a)
+            a.wait_for("flight recorder armed", NODE_WAIT_S)
+            b = CliNode(pb, "-metrics-port", str(mb),
+                        "-store-dir", os.path.join(tmp, "sb"),
+                        "-recv-dir", recv,
+                        "-incident-dir", os.path.join(tmp, "ib"),
+                        "-chaos-profile", CHAOS_PROFILE,
+                        "-chaos-seed", str(CHAOS_SEED),
+                        "-trace-peers", url_a, "-collect-traces", merged,
+                        "-collect-interval", "1",
+                        "-federate", f"{url_a},{url_b}",
+                        "-federate-interval", "1",
+                        "-peers", f"tcp://127.0.0.1:{pa}")
+            started.append(b)
+            b.wait_for(f"-> tcp://127.0.0.1:{pa} (seed {CHAOS_SEED})",
+                       NODE_WAIT_S)
+            t_proxy = time.perf_counter()
+            a.wait_for(f"registered peer tcp://127.0.0.1:{pb}", NODE_WAIT_S)
+            report["start_seconds"] = time.perf_counter() - t0
+            report["registered_proxy_s"] = time.perf_counter() - t_proxy
+            before = {u: scrape(u + "/metrics") for u in (url_a, url_b)}
+
+            def poll() -> None:
+                while not stop.wait(0.1):
+                    seen.append((time.perf_counter() - t0,
+                                 http_status(url_b + "/healthz")))
+
+            poller = threading.Thread(target=poll, daemon=True)
+            poller.start()
+            lead = t_proxy + CHAOS_LEAD_S - time.perf_counter()
+            check(lead > 1.0, f"B registered {CHAOS_LEAD_S - lead:.1f} s "
+                  f"into the proxy's schedule, before its faults")
+            time.sleep(lead)
+            t_send = time.perf_counter()
+            for m in lines:
+                a.send_line(m)
+                time.sleep(CHAOS_GAP_S)
+            report["send_seconds"] = time.perf_counter() - t_send
+
+            def received() -> set:
+                try:
+                    return set(os.listdir(recv))
+                except FileNotFoundError:
+                    return set()
+
+            wait_until(lambda: len(received() & set(names)) == CHAOS_MSGS
+                       or not all(n.proc.poll() is None for n in started),
+                       CHAOS_WAIT_S, "every chaos message delivered")
+            report["delivered_seconds"] = time.perf_counter() - t_send
+            report["send_proxy_s"] = t_send - t_proxy
+            got = received()
+            check(got == set(names),
+                  f"delivered {len(got & set(names))}/{CHAOS_MSGS}, "
+                  f"{len(got - set(names))} wrong objects")
+            for name, m in names.items():
+                with open(os.path.join(recv, name), "rb") as f:
+                    check(f.read() == m.encode(), "a chaos message byte-equal")
+            deadline = time.monotonic() + CHAOS_WAIT_S
+            while not (any(s == 503 for _, s in seen)
+                       and seen[-1][1] == 200):
+                if time.monotonic() > deadline:
+                    # What B saw, for the failure's message.
+                    flips = [round(t, 1) for t, st in seen if st == 503]
+                    outcomes = e2e_outcomes(url_b)
+                    check(False, "B's /healthz went 503 and back to 200 "
+                          f"within {CHAOS_WAIT_S:g} s (503 polls "
+                          f"{len(flips)}, first {flips[:1]}, last "
+                          f"{flips[-1:]}, last poll {seen[-1:]}, e2e "
+                          f"outcomes {outcomes}, /healthz "
+                          f"{http_body(url_b + '/healthz?verbose=1')})")
+                time.sleep(0.05)
+            stop.set()
+            poller.join(timeout=5)
+            report["outcomes_b"] = e2e_outcomes(url_b)
+            first = next(t for t, st in seen if st == 503)
+            last = max(t for t, st in seen if st == 503)
+            report["healthz"] = {"first_503_s": first, "last_503_s": last,
+                                 "back_to_200_s": next(
+                                     t for t, st in seen
+                                     if t > last and st == 200),
+                                 "polls": len(seen)}
+            time.sleep(2.5)  # one more scrape cycle of the federator
+            now = {u: scrape(u + "/metrics") for u in (url_a, url_b)}
+            fleet = scrape(url_b + "/fleet/metrics")
+            family = "noise_ec_kernel_calls_total"
+            report["federated"] = {
+                "family": family,
+                "a": family_total(now[url_a], family),
+                "b": family_total(now[url_b], family),
+                "fleet": family_total(fleet, family),
+            }
+            fed = report["federated"]
+            check(fed["a"] > 0 and fed["b"] > 0
+                  and fed["fleet"] == fed["a"] + fed["b"],
+                  f"/fleet/metrics sums both nodes' {family}: {fed}")
+            diagnose = json.loads(scrape(url_b + "/diagnose"))
+            check({"verdicts", "trigger", "healthy"} <= set(diagnose),
+                  "/diagnose answered")
+            report["diagnose_verdicts"] = [v["verdict"]
+                                           for v in diagnose["verdicts"]]
+            report["calls"] = {}
+            for name, url in (("a", url_a), ("b", url_b)):
+                calls = (family_total(now[url], family)
+                         - family_total(before[url], family))
+                report["calls"][name] = calls
+                refused = family_total(now[url],
+                                       "noise_ec_codec_refused_total")
+                fallback = family_total(now[url],
+                                        "noise_ec_codec_fallback_total")
+                state = family_total(now[url], "noise_ec_codec_circuit_state")
+                check(refused == 0 and fallback == 0 and state == 0,
+                      f"node {name} health clean (refused {refused}, "
+                      f"fallbacks {fallback}, breaker state {state})")
+            check(report["calls"]["a"] > 0 and report["calls"]["b"] > 0,
+                  f"both nodes ran device products ({report['calls']})")
+            # Each node's kernel launches, from its /metrics.
+            report["launches"] = {name: launch_gauges(now[url])
+                                  for name, url in (("a", url_a),
+                                                    ("b", url_b))}
+        finally:
+            stop.set()
+            for node in started:
+                node.stop()
+        rcs = [node.proc.returncode for node in started]
+        check(rcs == [0, 0], f"both chaos CLI nodes exited 0 ({rcs})")
+        report["chaos"] = log_value(b, "chaos stats: ")
+        ch = report["chaos"]
+        check(ch["resets"] == 1 and ch["dropped"] > 0 and ch["corrupted"] > 0
+              and ch["partitioned"] > 0, f"the proxy injected faults: {ch}")
+        check(all(ln.get("fused_split", 0) > 0
+                  for ln in report["launches"].values()),
+              f"K5 launched on each node ({report['launches']})")
+        bundles = sorted(glob.glob(os.path.join(tmp, "i*", "incident-*.json")))
+        bundles = [p for p in bundles if not p.endswith(".trace.json")]
+        check(len(bundles) == 1 and bundles[0].endswith("-flip.json"),
+              f"exactly one incident bundle, on the flip ({bundles})")
+        with open(bundles[0]) as f:
+            bundle = json.load(f)
+        report["bundle"] = {"trigger": bundle["trigger"],
+                            "timeline": len(bundle["timeline"]),
+                            "events": len(bundle.get("events") or []),
+                            "verdicts": [v["verdict"] for v in (
+                                bundle.get("diagnosis") or {}).get(
+                                "verdicts", [])]}
+        with open(merged) as f:
+            doc = json.load(f)
+        nodes = doc["otherData"]["nodes"]
+        slices = sum(1 for e in doc["traceEvents"] if e.get("ph") == "X")
+        check(len(nodes) == 2 and slices > 0,
+              f"the merged trace holds both nodes ({nodes}, {slices} spans)")
+        report["merged_trace"] = {"nodes": len(nodes), "spans": slices}
+    return report
+
+
+def phase_fleet() -> dict:
+    """The fleet lab on the card (module docstring, phase ``fleet``): one
+    ``FleetLab`` of FLEET_PROFILE with every peer's plugin and store on
+    ``device="cuda"``, its report (delivery >= 0.999, sheds apart from
+    losses, msgs/s, object MB/s, e2e p50/p99), K5's launches and device
+    time from a torch.profiler trace of the run, the gate's peak depth,
+    the threads and the peers' pinned staging bytes, the report JSON and
+    its Perfetto trace; then the straggler drill (a slow owner, the hedged
+    GET through ``placement_fetch``) on the card and on numpy peers, with
+    its hedge counters and GET outcomes."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from noise_ec_tpu_torch.fleet import FleetLab, FleetProfile
+    from noise_ec_tpu_torch.obs import default_registry
+    from noise_ec_tpu_torch.ops.dispatch import device_gate
+
+    report = {"phase": "fleet", "nvidia_smi": nvidia_smi(),
+              "profile": FLEET_PROFILE, "seed": FLEET_SEED}
+    by_run: dict = {}
+    gate = device_gate()
+    peak = [0, 0]  # the gate's depth, the process's threads
+    stop = threading.Event()
+
+    def sample() -> None:
+        while not stop.wait(0.001):
+            peak[0] = max(peak[0], gate.in_flight + gate.waiters)
+            peak[1] = max(peak[1], threading.active_count())
+
+    with tempfile.TemporaryDirectory(prefix="noise_ec_fleet_") as tmp:
+        t0 = time.perf_counter()
+        lab = FleetLab(FleetProfile.parse(FLEET_PROFILE), seed=FLEET_SEED,
+                       device="cuda")
+        try:
+            lab.start()
+            report["start_seconds"] = time.perf_counter() - t0
+            devices = {str(fec._rs._dev.device) for p in lab.peers
+                       for fec in p.plugin._fec_cache.values()}
+            check(devices == {"cuda:0"},
+                  f"every peer's codec is on the card ({devices})")
+            threads0 = threading.active_count()
+            sampler = threading.Thread(target=sample, daemon=True)
+            sampler.start()
+            # Device activity only: CUPTI records every kernel and copy
+            # the run puts on the card, from any thread.
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                out = counted_run(by_run, "lab", lab.run)
+                torch.cuda.synchronize()
+            stop.set()
+            sampler.join(timeout=5)
+            report["threads"] = {"before": threads0, "peak": peak[1]}
+            # Pinned staging pages the peers' device codecs hold.
+            codecs = [fec._rs._dev for p in lab.peers
+                      for fec in p.plugin._fec_cache.values()]
+            codecs += [rs._dev for p in lab.peers if p.store is not None
+                       for rs in p.store._codecs.values()]
+            pinned = [sum(b.numel() for stack in c._pool._free.values()
+                          for b in stack) for c in codecs]
+            report["staging_pinned_bytes"] = {
+                "codecs": len(codecs), "total": sum(pinned),
+                "max_codec": max(pinned)}
+            path = os.path.join(tmp, "fleet.json")
+            lab.write_report(path)
+            doc = lab.write_trace(path + ".trace.json")
+            report["report_bytes"] = os.path.getsize(path)
+            report["trace_spans"] = sum(
+                1 for e in doc["traceEvents"] if e.get("ph") == "X")
+            kinds = sorted({type(e).__name__ for e in lab.errors})
+            samples = sorted({f"{type(e).__name__}: {e}"[:100]
+                              for e in lab.errors})[:4]
+        finally:
+            stop.set()
+            lab.close()
+        delivery = out["delivery"]
+        check(delivery["rate"] >= 0.999,
+              f"fleet delivery {delivery['rate']} >= 0.999 ({delivery})")
+        device_kinds = {"CodecUnavailableError", "KernelBuildError",
+                        "KernelLaunchError", "RuntimeError"}
+        check(not device_kinds & set(kinds),
+              f"no device failure among the fleet's errors ({kinds})")
+        launches = by_run["lab"]
+        k5 = launches.get("fused_split", 0)
+        check(k5 > 0, "the fleet launched K5")
+        prof_dev = {"k5_ms": 0.0, "k5_events": 0, "all_ms": 0.0,
+                    "all_events": 0}
+        for ev in prof.key_averages():
+            t = getattr(ev, "device_time_total", None)
+            if t is None:
+                t = getattr(ev, "cuda_time_total", 0)
+            if not t:
+                continue
+            prof_dev["all_ms"] += t / 1e3
+            prof_dev["all_events"] += ev.count
+            if "split_kernel" in ev.key:
+                prof_dev["k5_ms"] += t / 1e3
+                prof_dev["k5_events"] += ev.count
+        shape = FleetProfile.parse(FLEET_PROFILE)
+        report["run"] = {
+            "delivery": delivery, "shed": out["shed"],
+            "msgs_per_s": out["msgs_per_s"], "objects": out["objects"],
+            "latency_ms": out["latency_ms"], "duration_s": out["duration_s"],
+            "sent": out["sent"], "by_kind": out["by_kind"],
+            "chaos": out["chaos"], "errors": out["errors"],
+            "error_kinds": kinds, "error_samples": samples,
+            "backpressure_waits": out["backpressure_waits"],
+            "object_put_mb_per_s": out["by_kind"].get("object", {}).get(
+                "sent", 0) * shape.object_bytes / out["duration_s"] / 1e6,
+            "gets": out["gets"], "verify_reads": out["verify_reads"],
+        }
+        report["k5_launches"] = k5
+        report["launches"] = {n: c for n, c in launches.items() if c}
+        # K5's device time over the run, from the trace; None where the
+        # trace came back without device events.
+        report["device_trace"] = prof_dev
+        wall_ms = out["duration_s"] * 1e3
+        report["k5_device_share"] = (prof_dev["k5_ms"] / wall_ms
+                                     if prof_dev["k5_events"] else None)
+        report["device_busy_share"] = (prof_dev["all_ms"] / wall_ms
+                                       if prof_dev["all_events"] else None)
+        report["gate_peak_depth"] = peak[0]
+
+        # The straggler drill, on the card and then on numpy peers with
+        # the same seed: the numpy run says what the lab's traffic gives
+        # without the card.
+        reg = default_registry()
+        report["straggler"] = {"profile": FLEET_STRAGGLER}
+        for name, kwargs in (("cuda", {"device": "cuda"}),
+                             ("numpy", {"backend": "numpy"})):
+            hedge0 = {key: reg.counter(f"noise_ec_hedge_{key}_total")
+                      .labels().value
+                      for key in ("requests", "wins", "cancelled", "late")}
+            lab = FleetLab(FleetProfile.parse(FLEET_STRAGGLER),
+                           seed=FLEET_SEED, **kwargs)
+            try:
+                lab.start()
+                drill = counted_run(by_run, f"straggler {name}", lab.run)
+            finally:
+                lab.close()
+            hedge = {key: int(drill["hedge"][key] - hedge0[key])
+                     for key in hedge0}
+            gets, reads = drill["gets"], drill["verify_reads"]
+            objects = drill["by_kind"]["object"]
+            report["straggler"][name] = {
+                "hedge": hedge,
+                "tenant_get_p99_ms": drill["tenant_get_p99_ms"],
+                "gets": gets, "verify_reads": reads,
+                "delivery": drill["delivery"],
+                "placement": drill["placement"],
+                "launches": {n: c for n, c in
+                             by_run[f"straggler {name}"].items() if c},
+            }
+            check(hedge["requests"] > 0 and hedge["wins"] > 0,
+                  f"the {name} straggler drill hedged ({hedge})")
+            check(sum(gets.values()) > 0 and gets["bad"] == 0
+                  and gets["failed"] == 0,
+                  f"no {name} straggler GET failed or read wrong bytes "
+                  f"({gets})")
+            check(reads["ok"] == objects["expected"] > 0
+                  and reads["bad"] == reads["failed"] == reads["missing"]
+                  == 0,
+                  f"every {name} straggler object read back from every "
+                  f"expected receiver ({reads}, {objects})")
+        check(by_run["straggler cuda"].get("fused_split", 0) > 0,
+              "the straggler drill launched K5")
+        check(sum(by_run["straggler numpy"].values()) == 0,
+              "the numpy-peer drill launched no kernel")
+    return report
+
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4995,6 +5483,8 @@ def main() -> int:
     # large objects stay out of every timed phase's process state.
     timed(phase_node, rng, device)
     timed(phase_store, rng, device)
+    timed(phase_chaos_obs, rng)
+    timed(phase_fleet)
     kernels = []
     for name, res in results.items():
         res["launches"] = main_path["launches"][name]

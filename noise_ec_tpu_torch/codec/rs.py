@@ -146,6 +146,9 @@ class ReedSolomon:
         )
 
         D = np.asarray(D)
+        empty = self._empty_product(M, D.shape)
+        if empty is not None:
+            return empty
         cutoff_device = self._dev.device if self._dev is not None else "cpu"
         if D.nbytes > coalesce_cutoff_bytes(cutoff_device):
             # Compute-bound regime (ops/coalesce.py cutoff): batching a
@@ -164,10 +167,25 @@ class ReedSolomon:
         Ds = [np.asarray(D) for D in Ds]
         if not Ds:
             return []
+        empty = self._empty_product(M, Ds[0].shape)
+        if empty is not None:
+            return [empty.copy() for _ in Ds]
         return coalescer().submit_many(
             self._mul_key(M, Ds[0].shape, Ds[0].dtype),
             self._batch_fn(M), Ds,
         )
+
+    def _empty_product(self, M: np.ndarray, shape: tuple):
+        """The (r, S) zeros of a product with no rows or no width, or None.
+
+        Such a product is the reference's empty array on either backend.
+        It runs nowhere, so it never reaches the coalescer, the device
+        gate or the breaker: a caller's empty product is no device
+        failure."""
+        r, k = np.shape(M)
+        if r and k and shape[-1]:
+            return None
+        return np.zeros((r, shape[-1]), self.gf.dtype)
 
     def _mul_key(self, M: np.ndarray, shape: tuple, dtype) -> tuple:
         """Coalescer bucket key: everything that must match for two

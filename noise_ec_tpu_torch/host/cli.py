@@ -24,11 +24,14 @@ The stripe store (``-store-dir``, ``-scrub-interval``,
 ``-announce-interval``), placement (``-topology``) and the object service
 (``-object-port``, ``-object-cache-mb``, ``-tenants``,
 ``-convert-interval``) run as in the reference, their codecs on
-``-backend``/``-device`` like the plugin's. The flags of the modules the
-port does not carry yet (metrics federation, the flight recorder, the
-trace collector, the chaos proxy and the fleet lab) stay in the parser, so
-``--help`` lists what the reference's does; setting one away from its
-default exits with status 2 (:data:`NOT_PORTED_FLAGS`).
+``-backend``/``-device`` like the plugin's. So do metrics federation
+(``-federate``), the flight recorder (``-incident-dir``), the trace
+collector (``-trace-peers``, ``-collect-traces``), the chaos proxy
+(``-chaos-profile``, ``-chaos-seed``) and the fleet lab
+(``-fleet-profile``, ``-fleet-size``, ``-fleet-report``), whose peers run
+their codecs on ``-backend``/``-device`` too. With ``-metrics-port`` the
+node also serves ``GET /diagnose``, which the reference's CLI does not
+mount.
 """
 
 from __future__ import annotations
@@ -49,15 +52,6 @@ from noise_ec_tpu_torch.obs.trace import default_tracer
 from noise_ec_tpu_torch.utils.logging import setup_logging
 
 log = logging.getLogger("noise_ec_tpu_torch.host.cli")
-
-
-# Flags whose modules the port does not carry yet (ROADMAP queue 1 item
-# 5); any of them set away from its default refuses the run.
-NOT_PORTED_FLAGS = (
-    "chaos_profile", "chaos_seed", "fleet_profile", "fleet_size",
-    "fleet_report", "trace_peers", "collect_traces", "collect_interval",
-    "federate", "federate_interval", "incident_dir",
-)
 
 
 def _kernel_label(backend: str, device: str) -> str:
@@ -355,19 +349,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: list[str] | None = None) -> int:
     setup_logging()  # stderr-forced, like flag.Set("logtostderr") main.go:118
-    parser = build_parser()
-    args = parser.parse_args(argv)
-    owed = [
-        "-" + dest.replace("_", "-") for dest in NOT_PORTED_FLAGS
-        if getattr(args, dest) != parser.get_default(dest)
-    ]
-    if owed:
-        log.error(
-            "%s: not ported yet (ROADMAP queue 1 item 5: federation, "
-            "flight recorder, trace collector, chaos proxy and fleet lab)",
-            " ".join(owed),
-        )
-        return 2
+    args = build_parser().parse_args(argv)
 
     ladder = 0
     if args.compile_cache_dir and args.backend == "device":
@@ -571,6 +553,44 @@ def main(argv: list[str] | None = None) -> int:
     if args.stats_interval > 0:
         reporter = PeriodicReporter(args.stats_interval, stats_snapshot, log)
 
+    federator = None
+    federate_peers = [u for u in args.federate.split(",") if u]
+    if federate_peers and stats_server is not None:
+        from noise_ec_tpu_torch.obs.federate import MetricsFederator
+
+        federator = MetricsFederator(peers=federate_peers)
+        federator.attach(stats_server)
+        federator.start(interval=max(args.federate_interval, 1.0))
+        log.info(
+            "federating metrics from %d peer(s) on %s/fleet/metrics",
+            len(federate_peers), stats_server.url,
+        )
+
+    recorder = None
+    if args.incident_dir:
+        from noise_ec_tpu_torch.obs.recorder import FlightRecorder
+
+        recorder = FlightRecorder(
+            slo=default_slo(), incident_dir=args.incident_dir
+        )
+        recorder.start()
+        if stats_server is not None:
+            recorder.attach(stats_server)
+        log.info(
+            "flight recorder armed: incident bundles -> %s on SLO "
+            "flip%s", args.incident_dir,
+            " or GET /incident" if stats_server is not None else "",
+        )
+
+    if stats_server is not None:
+        # GET /diagnose and the /healthz fold (docs/observability.md
+        # "Diagnosis"); with the recorder, its bundles carry a verdict.
+        from noise_ec_tpu_torch.obs.diagnose import DiagnosisEngine
+
+        DiagnosisEngine(slo=default_slo(), recorder=recorder).attach(
+            stats_server
+        )
+
     object_server = converter = None
     if args.object_port >= 0:
         from noise_ec_tpu_torch.service import (
@@ -624,11 +644,82 @@ def main(argv: list[str] | None = None) -> int:
                 args.convert_interval,
             )
 
+    collector = None
+    trace_peers = [u for u in args.trace_peers.split(",") if u]
+    if trace_peers or args.collect_traces:
+        from noise_ec_tpu_torch.obs.collector import TraceCollector
+
+        # handshake_rtts is passed as the bound method: hints re-read
+        # every poll, so peers dialed later still tighten clock sync.
+        collector = TraceCollector(trace_peers, rtt_hints=net.handshake_rtts)
+        collector.start(interval=max(args.collect_interval, 1.0))
+        log.info(
+            "collecting distributed traces from %d peer endpoint(s)",
+            len(trace_peers),
+        )
+
     peers = [a for a in args.peers.split(",") if a]
+    chaos_proxies = []
+    if peers and args.chaos_profile:
+        from noise_ec_tpu_torch.resilience.chaos import ChaosProfile, ChaosProxy
+
+        profile = ChaosProfile.parse(args.chaos_profile)
+        proxied = []
+        for addr in peers:
+            host, port = TCPNetwork._split(addr)
+            proxy = ChaosProxy(
+                host, port, profile=profile, seed=args.chaos_seed
+            ).start()
+            chaos_proxies.append(proxy)
+            proxied.append(proxy.address)
+            log.info("chaos proxy %s -> %s (seed %d)",
+                     proxy.address, addr, args.chaos_seed)
+        peers = proxied
     if peers:
         net.bootstrap(peers)
 
+    fleet_lab = None
     try:
+        if args.fleet_profile:
+            # Fleet-lab mode (docs/fleet.md): drive the declarative
+            # traffic mix across an in-process fleet, score it, and
+            # exit: no REPL. The TCP node above keeps serving its
+            # endpoints while the lab runs, so /fleet and /healthz show
+            # live status. The lab's peers run their codecs where this
+            # node's do (-backend, -device).
+            from noise_ec_tpu_torch.fleet import FleetLab, FleetProfile
+
+            fleet_profile = FleetProfile.parse(args.fleet_profile)
+            fleet_lab = FleetLab(
+                fleet_profile,
+                size=args.fleet_size or None,
+                seed=args.chaos_seed,
+                backend=args.backend,
+                device=args.device,
+            )
+            fleet_lab.start()
+            if stats_server is not None:
+                fleet_lab.attach(stats_server)
+                log.info("fleet status on %s/fleet", stats_server.url)
+            with device_trace(args.trace):
+                report = fleet_lab.run()
+            log.info(
+                "fleet run: %d peers, %d sent, delivery %.4f "
+                "(%d delivered / %d lost / %d churned), %d shed",
+                report["peers"], report["sent"],
+                report["delivery"]["rate"], report["delivery"]["delivered"],
+                report["delivery"]["lost"], report["delivery"]["churned"],
+                report["shed"]["total"],
+            )
+            if args.fleet_report:
+                fleet_lab.write_report(args.fleet_report)
+                doc = fleet_lab.write_trace(args.fleet_report + ".trace.json")
+                log.info(
+                    "fleet report written to %s (+%d-span Perfetto trace)",
+                    args.fleet_report,
+                    len(doc.get("traceEvents", [])),
+                )
+            return 0
         with device_trace(args.trace):
             for line in sys.stdin:  # blocking REPL, main.go:175-198
                 stripped = line.rstrip("\n")
@@ -659,6 +750,8 @@ def main(argv: list[str] | None = None) -> int:
     except KeyboardInterrupt:
         pass
     finally:
+        if fleet_lab is not None:
+            fleet_lab.close()
         if converter is not None:
             converter.close()
         if rebalancer is not None:
@@ -669,6 +762,29 @@ def main(argv: list[str] | None = None) -> int:
             engine.close()
         if reporter is not None:
             reporter.close()
+        if collector is not None:
+            collector.close()
+            try:
+                collector.poll()  # final sweep before the transport dies
+                if args.collect_traces:
+                    from noise_ec_tpu_torch.obs.perfetto import (
+                        write_chrome_trace,
+                    )
+
+                    spans = collector.merged_spans()
+                    doc = write_chrome_trace(args.collect_traces, spans)
+                    log.info(
+                        "wrote %d spans from %d node(s) to %s "
+                        "(open in Perfetto / chrome://tracing)",
+                        len(spans), len(doc["otherData"]["nodes"]),
+                        args.collect_traces,
+                    )
+            except Exception as exc:  # noqa: BLE001 — telemetry teardown
+                log.error("trace export failed: %s", exc)
+        if recorder is not None:
+            recorder.close()
+        if federator is not None:
+            federator.close()
         if object_server is not None:
             object_server.close()
         if stats_server is not None:
@@ -676,6 +792,9 @@ def main(argv: list[str] | None = None) -> int:
         if sampler is not None:
             sampler.close()
         net.close()
+        for proxy in chaos_proxies:
+            proxy.close()
+            log.info("chaos stats: %s", proxy.stats())
         stats = stats_snapshot()
         if stats:
             log.info("session stats: %s", stats)

@@ -7,7 +7,8 @@ the port's checks hold the kernels and the shim against it.
 (:mod:`noise_ec_tpu_torch.shim`: split-nibble/GFNI kernels over GF(2^8),
 nibble-shuffle ones over GF(2^16)), byte-identical to the ground truth. A
 shim that cannot be built or loaded raises ``ShimBuildError``; the JAX
-package's drops to NumPy instead.
+package's drops to NumPy instead. Both run NumPy for a product with no
+rows, which the shim refuses.
 """
 
 from __future__ import annotations
@@ -24,7 +25,10 @@ def host_matvec(gf: GF, M: np.ndarray, D: np.ndarray) -> np.ndarray:
 
 def native_matvec(gf: GF, M: np.ndarray, D: np.ndarray) -> np.ndarray:
     """M (r, k) @ D (k, S) over the field on the native shim (NumPy for a
-    field the shim does not carry)."""
+    field or a shape the shim does not carry: r = 0 has no row for it to
+    write, as in the JAX package's ``host_matvec``)."""
+    if np.shape(M)[0] == 0:
+        return gf.matvec_stripes(M, D)
     if gf.degree == 8:
         from noise_ec_tpu_torch.shim import gf_matmul_stripes
 

@@ -8,7 +8,8 @@ Port of ``noise_ec_tpu.obs.profiling``:
   region can be captured without the callers importing profiler plumbing.
 - **Per-kernel counters**: :data:`kernel_counters` accumulates call
   counts and payload bytes per device entry point; ``DeviceCodec`` feeds
-  it on every public entry.
+  it on every public entry. :func:`kernel_gbps` folds a wall-clock window
+  (:func:`timed_window`) into data rates.
 
 Counters are process-global on purpose: the hot path records four counter
 adds per device call (no sync, no device round trip). The same event
@@ -27,7 +28,9 @@ from noise_ec_tpu_torch.obs.metrics import Counters
 __all__ = [
     "device_trace",
     "kernel_counters",
+    "kernel_gbps",
     "record_kernel",
+    "timed_window",
 ]
 
 # Global per-kernel stats: "<entry>_calls" and "<entry>_bytes" pairs, e.g.
@@ -80,3 +83,33 @@ def device_trace(logdir: Optional[str]) -> Iterator[None]:
     os.makedirs(logdir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(
         logdir, f"trace-{os.getpid()}-{time.monotonic_ns()}.json"))
+
+
+@contextlib.contextmanager
+def timed_window() -> Iterator[dict]:
+    """Snapshot kernel counters around a region; yields a dict filled on
+    exit with per-entry deltas plus the wall-clock window."""
+    before = kernel_counters.snapshot()
+    out: dict = {}
+    t0 = time.perf_counter()
+    try:
+        yield out
+    finally:
+        out["window_s"] = time.perf_counter() - t0
+        after = kernel_counters.snapshot()
+        for k, v in after.items():
+            d = v - before.get(k, 0.0)
+            if d:
+                out[k] = d
+
+
+def kernel_gbps(window: dict) -> dict[str, float]:
+    """Fold a :func:`timed_window` result into GB/s per kernel entry."""
+    secs = window.get("window_s", 0.0)
+    if secs <= 0:
+        return {}
+    return {
+        k[: -len("_bytes")]: round(v / secs / 1e9, 3)
+        for k, v in window.items()
+        if k.endswith("_bytes")
+    }

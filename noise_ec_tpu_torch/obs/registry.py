@@ -965,6 +965,13 @@ PORT_METRICS: dict[str, tuple[str, str, tuple[str, ...]]] = {
         "the breaker, open = breaker not closed)",
         ("reason",),
     ),
+    "noise_ec_kernel_launches": (
+        "gauge",
+        "Launches of each hand-written CUDA kernel in this process since "
+        "the last ops.reset_launch_counts (read at collect time; exposed "
+        "once a codec on a CUDA device exists)",
+        ("kernel",),
+    ),
 }
 METRICS.update(PORT_METRICS)
 

@@ -26,7 +26,9 @@ budgets), in hand-written CUDA kernels for the H100 (``csrc/``).
   breaker the codecs consult around each product
 - ``coalesce`` — batching of concurrent same-shape requests
 
-Each kernel module keeps a ``LAUNCHES`` count of its kernel launches.
+Each kernel module keeps a ``LAUNCHES`` count of its kernel launches;
+``expose_launch_counts`` reads them into ``/metrics`` as the
+``noise_ec_kernel_launches{kernel}`` gauge.
 """
 
 from noise_ec_tpu_torch.ops import fused, gf2mm, mxu, pack, panel
@@ -44,3 +46,14 @@ def reset_launch_counts() -> None:
     for counts in _COUNTS:
         for name in counts:
             counts[name] = 0
+
+
+def expose_launch_counts() -> None:
+    """Read every kernel's launch count at collect time through the
+    default registry's ``noise_ec_kernel_launches`` gauge."""
+    from noise_ec_tpu_torch.obs.registry import default_registry
+
+    family = default_registry().gauge("noise_ec_kernel_launches")
+    for counts in _COUNTS:
+        for name in counts:
+            family.set_callback(lambda c=counts, n=name: c[n], kernel=name)

@@ -714,6 +714,9 @@ class DeviceCodec:
             # Build (or find) and load the kernels now: a build failure
             # raises here, before any breaker is consulted.
             library()
+            from noise_ec_tpu_torch.ops import expose_launch_counts
+
+            expose_launch_counts()
         elif self.device.type != "cpu":
             raise ValueError(f"unsupported device {device!r}")
         self.field = field
@@ -920,9 +923,14 @@ class DeviceCodec:
         reference: K8 takes byte rows (:meth:`matmul_words_bytesliced`).
 
         Returns once the work is queued on the card: the ``device_op``
-        time of this entry is the submit time."""
+        time of this entry is the submit time. A product with no rows or
+        no width returns its zeros and launches nothing, outside the gate
+        (as :meth:`_stripes_entry`)."""
         M = np.asarray(M)
         self._check_words(words, M.shape[1])
+        if M.size == 0 or words.shape[2] == 0:
+            return words.new_zeros((words.shape[0], M.shape[0],
+                                    words.shape[2]))
         nbytes = 4 * words.numel()
         route = self._admit("matmul_words", M, tier, nbytes)
         with device_gate(), device_op("matmul_words", route, nbytes,
@@ -949,6 +957,8 @@ class DeviceCodec:
             raise ValueError(f"expected (2k, TW) words, got "
                              f"{tuple(words.shape)}")
         self._check_words(words[None], 2 * M.shape[1])
+        if M.size == 0 or words.shape[1] == 0:
+            return words.new_zeros((2 * M.shape[0], words.shape[1]))
         nbytes = 4 * words.numel()
         route = self._admit("matmul_words_bytesliced", M, None, nbytes)
         with device_gate(), device_op("matmul_words_bytesliced", route,
@@ -1134,7 +1144,12 @@ class DeviceCodec:
     def _stripes_entry(self, M: np.ndarray, Ds: list,
                        tier: Optional[str]) -> list:
         """The gated, timed body of both stripes entries (one entry name,
-        "matmul_stripes", as in the reference)."""
+        "matmul_stripes", as in the reference). A product with no rows or
+        no width returns its empty (r, S) result here: it launches
+        nothing, so it takes no gate slot and is no device call."""
+        if M.size == 0 or Ds[0].shape[1] == 0:
+            return [np.zeros((M.shape[0], D.shape[1]), self.gf.dtype)
+                    for D in Ds]
         nbytes = sum(D.nbytes for D in Ds)
         route = self._admit("matmul_stripes", M, tier, nbytes)
         with device_gate(), device_op("matmul_stripes", route,

@@ -412,3 +412,79 @@ def test_fec_device_route_refuses_while_open(rng, monkeypatch,
     br.record_success()
     assert fec.decode(shares) == payload
     assert syndromes["n"] >= 1
+
+
+# -- empty products: the reference's arrays, and never a device failure --
+
+_EMPTY = {
+    "zero_rows": ((0, 4), (4, 64)),
+    "zero_width": ((2, 4), (4, 0)),
+    "both": ((0, 4), (4, 0)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_EMPTY))
+@pytest.mark.parametrize("backend", ["device", "numpy"])
+@pytest.mark.parametrize("field", ["gf256", "gf65536"])
+def test_empty_products_return_the_reference_arrays(field, backend, case):
+    """A product with zero rows or zero width returns the reference's
+    ``(0, S)`` / ``(r, 0)`` arrays from ``matmul_many`` and ``_mul`` on
+    both backends, before the gate and the breaker: the breaker stays
+    closed, nothing is refused, and the next encode runs."""
+    from noise_ec_tpu.codec import ReedSolomon as RefReedSolomon
+
+    kw = {"device": "cpu"} if backend == "device" else {}
+    rs = ReedSolomon(4, 2, field=field, backend=backend, **kw)
+    ref = RefReedSolomon(4, 2, field=field, backend=backend)
+    dt = rs.gf.dtype
+    m_shape, d_shape = _EMPTY[case]
+    M = np.ones(m_shape, dt)
+    Ds = [np.zeros(d_shape, dt), np.ones(d_shape, dt)]
+    got, want = rs.matmul_many(M, Ds), ref.matmul_many(M, Ds)
+    assert [(g.shape, g.dtype) for g in got] == [
+        (np.asarray(w).shape, np.asarray(w).dtype) for w in want]
+    assert rs._mul(M, Ds[0]).shape == want[0].shape
+    assert dispatch.codec_breaker().closed
+    assert _refusals("error") == 0 and _refusals("open") == 0
+    data = bytes(range(200))
+    enc = rs.encode(rs.split(data))
+    want_enc = ref.encode(ref.split(data))
+    assert all(np.array_equal(a, np.asarray(b))
+               for a, b in zip(enc, want_enc))
+
+
+@pytest.mark.parametrize("field", ["gf256", "gf65536"])
+def test_device_codec_empty_entries_launch_nothing(field):
+    """Every ``DeviceCodec`` product entry returns its empty result for
+    zero rows or zero width without a gate slot or an entry count."""
+    from noise_ec_tpu_torch.obs.profiling import kernel_counters
+
+    dev = DeviceCodec(field=field, device="cpu")
+    dt = dev.gf.dtype
+    before = kernel_counters.snapshot()
+    gate = dispatch.configure_device_gate(capacity=1, wait_timeout=30.0)
+    gate.acquire()  # a call that took a slot would wait here
+    try:
+        _empty_entries(dev, dt, field)
+    finally:
+        gate.release()
+        dispatch.configure_device_gate()
+    assert kernel_counters.snapshot() == before
+
+
+def _empty_entries(dev, dt, field):
+    assert dev.matmul_stripes(np.ones((0, 3), dt),
+                              np.ones((3, 40), dt)).shape == (0, 40)
+    assert dev.matmul_stripes(np.ones((2, 3), dt),
+                              np.ones((3, 0), dt)).shape == (2, 0)
+    outs = dev.matmul_stripes_many(np.ones((0, 3), dt),
+                                   [np.ones((3, 8), dt)] * 2)
+    assert [o.shape for o in outs] == [(0, 8), (0, 8)]
+    w = torch.ones((2, 3, 16), dtype=torch.int32)
+    assert dev.matmul_words_batch(np.ones((0, 3), dt), w).shape == (2, 0, 16)
+    assert dev.matmul_words(np.ones((2, 3), dt),
+                            w[0, :, :0]).shape == (2, 0)
+    if field == "gf65536":
+        assert dev.matmul_words_bytesliced(
+            np.ones((0, 3), dt),
+            torch.ones((6, 16), dtype=torch.int32)).shape == (0, 16)

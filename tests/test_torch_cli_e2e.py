@@ -8,8 +8,9 @@ receiver's stats server answers ``/metrics``, ``/healthz`` and
 ``/events``); two store-backed nodes serve an object PUT over HTTP to
 one from the other, also after a restart from the store directory, one
 node runs with all eight of those modules' flags, and a store-backed
-node on the default ``-device cuda`` exits 1 without a card; a flag whose module is not ported yet exits with status 2;
-and a port node and a reference node (``python -m noise_ec_tpu.host.cli
+node on the default ``-device cuda`` exits 1 without a card; each flag
+of the chaos proxy, federation, the flight recorder, the trace collector
+and the fleet lab runs its module; and a port node and a reference node (``python -m noise_ec_tpu.host.cli
 -backend numpy``) exchange a line each way over TCP — the wire interop."""
 
 import hashlib
@@ -172,18 +173,89 @@ def test_two_port_nodes_exchange_lines_and_a_file(nodes, tmp_path, protocol):
             "node", "epoch", "next_since", "events"}
 
 
-@pytest.mark.parametrize("flag", [["-trace-peers", "http://127.0.0.1:1"],
-                                  ["-fleet-profile", "object=1"],
-                                  ["-chaos-profile", "drop=0.1"],
-                                  ["-federate-interval", "3"]])
-def test_flag_of_an_unported_module_exits_2(flag):
-    proc = subprocess.run(
-        [sys.executable, "-m", PORT_CLI, *NUMPY, *flag],
-        capture_output=True, text=True, cwd=REPO, timeout=120,
-        stdin=subprocess.DEVNULL,
-    )
-    assert proc.returncode == 2
-    assert "not ported yet" in proc.stderr and flag[0] in proc.stderr
+def _get_json(url: str):
+    with urllib.request.urlopen(url, timeout=30) as resp:
+        return resp.status, resp.read()
+
+
+@pytest.mark.parametrize("case", ["chaos", "federate", "incident",
+                                  "collect", "fleet"])
+def test_flag_of_the_failure_and_observability_modules_runs_it(
+        nodes, tmp_path, case):
+    """Each of the eleven flags that the chaos proxy, federation, the
+    flight recorder, the trace collector and the fleet lab take starts its
+    module: the proxy is logged in front of the peer, ``/fleet/metrics``
+    (and ``/diagnose``) answer, ``/incident`` serves and writes a bundle,
+    the collector writes its merged trace on exit, and a small fleet
+    profile writes its report and trace and exits 0."""
+    (port,) = _free_ports(1)
+    if case == "fleet":
+        report = tmp_path / "fleet.json"
+        proc = subprocess.run(
+            [sys.executable, "-m", PORT_CLI, "-port", str(port), "-host",
+             "127.0.0.1", *DEVICE_CPU, "-fleet-profile",
+             "peers=8,fanout=2,msgs=12,chat=0.75,object=0.25,chaos=lossy",
+             "-fleet-size", "6", "-chaos-seed", "4",
+             "-fleet-report", str(report)],
+            capture_output=True, text=True, cwd=REPO, timeout=300,
+            stdin=subprocess.DEVNULL,
+        )
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        doc = json.loads(report.read_text())
+        assert doc["peers"] == 6 and doc["sent"] == 12
+        assert doc["chaos_profile"] == "lossy"
+        trace = json.loads((tmp_path / "fleet.json.trace.json").read_text())
+        assert "traceEvents" in trace
+        assert "fleet run: 6 peers, 12 sent" in proc.stderr
+        return
+    if case == "chaos":
+        (target,) = _free_ports(1)
+        b = nodes(PORT_CLI, target, *NUMPY)
+        b.wait_for("listening for peers", NODE_START_TIMEOUT)
+        a = nodes(PORT_CLI, port, *NUMPY, "-chaos-profile",
+                  "duplicate=0.2,delay=0.001", "-chaos-seed", "3",
+                  peers=f"tcp://127.0.0.1:{target}")
+        a.wait_for(f"-> tcp://127.0.0.1:{target} (seed 3)",
+                   NODE_START_TIMEOUT)
+        b.wait_for(f"registered peer tcp://127.0.0.1:{port}",
+                   REGISTRATION_TIMEOUT)
+        msg = "through the chaos proxy"
+        a.send_line(msg)
+        b.wait_for(f"message from tcp://127.0.0.1:{port}: "
+                   f"{msg.encode().hex()}", MESSAGE_TIMEOUT)
+        a.stop()
+        assert "'duplicated': " in a.wait_for("chaos stats: ", 5)
+        return
+    if case == "collect":
+        out = tmp_path / "merged.json"
+        node = nodes(PORT_CLI, port, *NUMPY, "-metrics-port", "0",
+                     "-trace-peers", "http://127.0.0.1:1",
+                     "-collect-traces", str(out), "-collect-interval", "1")
+        node.wait_for("collecting distributed traces from 1 peer endpoint",
+                      NODE_START_TIMEOUT)
+        node.send_line("a line for the local span ring")
+        node.wait_for("broadcasting message", MESSAGE_TIMEOUT)
+        node.stop()
+        doc = json.loads(out.read_text())
+        assert doc["traceEvents"] and doc["otherData"]["nodes"]
+        return
+    args = (["-federate", "http://127.0.0.1:1",
+             "-federate-interval", "1"] if case == "federate"
+            else ["-incident-dir", str(tmp_path / "inc")])
+    node = nodes(PORT_CLI, port, *NUMPY, "-metrics-port", "0", *args)
+    line = node.wait_for("metrics endpoint on ", NODE_START_TIMEOUT)
+    url = line.split("metrics endpoint on ")[1].split("/metrics")[0]
+    if case == "federate":
+        node.wait_for("federating metrics from 1 peer(s)", NODE_START_TIMEOUT)
+        status, body = _get_json(url + "/fleet/metrics")
+        assert status == 200
+        status, body = _get_json(url + "/diagnose")
+        assert status == 200 and "verdicts" in json.loads(body)
+    else:
+        node.wait_for("flight recorder armed", NODE_START_TIMEOUT)
+        status, body = _get_json(url + "/incident")
+        assert status == 200 and json.loads(body)["trigger"] == "request"
+        assert list((tmp_path / "inc").glob("incident-*-request.json"))
 
 
 def test_help_lists_the_reference_flags():

@@ -300,6 +300,15 @@ _STORAGE_MODULES = [("store", "stripe"), ("store", "scrub"), ("store", "repair")
              ("service", "tenants"), ("service", "cache"),
              ("service", "objects"), ("service", "http")]
 
+# Chaos, trace collection, federation, the flight recorder, diagnosis, the
+# fleet lab and the utils shims: both checks reach each of these too.
+_HOST_MODULES = [("resilience", "chaos"), ("obs", "perfetto"),
+                 ("obs", "collector"), ("obs", "federate"),
+                 ("obs", "recorder"), ("obs", "diagnose"),
+                 ("utils", "metrics"), ("utils", "profiling"),
+                 ("fleet", "__init__"), ("fleet", "profile"),
+                 ("fleet", "runner"), ("fleet", "score")]
+
 
 def test_no_jax_or_reference_imports_in_the_port_source():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -310,6 +319,8 @@ def test_no_jax_or_reference_imports_in_the_port_source():
             PORT / "codec" / "fec.py",
             PORT / "tools" / "hwcheck.py"} <= set(files)
     assert {PORT / group / f"{name}.py" for group, name in _STORAGE_MODULES} \
+        <= set(files)
+    assert {PORT / group / f"{name}.py" for group, name in _HOST_MODULES} \
         <= set(files)
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -327,6 +338,9 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
     mods = sorted(
         "noise_ec_tpu_torch." + ".".join(p.relative_to(PORT).with_suffix("").parts)
         for p in PORT.rglob("*.py") if p.name != "__init__.py"
+    ) + sorted(
+        ".".join(("noise_ec_tpu_torch",) + p.parent.relative_to(PORT).parts)
+        for p in PORT.rglob("__init__.py") if p.parent != PORT
     )
     assert {"noise_ec_tpu_torch.parallel.batch",
             "noise_ec_tpu_torch.parallel.streaming",
@@ -336,6 +350,9 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
             "noise_ec_tpu_torch.tools.hwcheck"} <= set(mods)
     assert {f"noise_ec_tpu_torch.{group}.{name}"
             for group, name in _STORAGE_MODULES} <= set(mods)
+    assert {f"noise_ec_tpu_torch.{group}" + ("" if name == "__init__"
+                                             else f".{name}")
+            for group, name in _HOST_MODULES} <= set(mods)
     code = (
         "import sys, importlib\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

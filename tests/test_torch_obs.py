@@ -55,9 +55,10 @@ def _value(family, **labels) -> float:
 def test_metrics_table_is_the_references():
     """Every name, type, help string and label tuple, in order."""
     """The reference's table, whole and in order, then the families only
-    the port records (the breaker's refusals)."""
+    the port records (the breaker's refusals, the kernels' launches)."""
     port_only = port_registry.PORT_METRICS
-    assert list(port_only) == ["noise_ec_codec_refused_total"]
+    assert list(port_only) == ["noise_ec_codec_refused_total",
+                               "noise_ec_kernel_launches"]
     assert not set(port_only) & set(ref_registry.METRICS)
     assert list(port_registry.METRICS) == (list(ref_registry.METRICS)
                                            + list(port_only))
@@ -280,6 +281,31 @@ def test_record_kernel_feeds_registry_families():
     assert _value(calls, entry="regkern") - c0 == 2
     assert _value(nbytes, entry="regkern") - b0 == 1536
     assert kernel_counters.get("regkern_bytes") - bag0 == 1536
+
+
+def test_kernel_launches_are_exposed_as_a_gauge():
+    """``ops.expose_launch_counts`` reads each kernel's ``LAUNCHES``
+    count into ``/metrics`` at collect time, zeroed by
+    ``reset_launch_counts`` (a CUDA codec calls it in its constructor)."""
+    from noise_ec_tpu_torch.obs.export import render_prometheus
+    from noise_ec_tpu_torch.ops import (
+        expose_launch_counts, fused, launch_counts, reset_launch_counts,
+    )
+
+    expose_launch_counts()
+    reset_launch_counts()
+    fused.LAUNCHES["fused_split"] += 3
+    try:
+        text = render_prometheus()
+        assert 'noise_ec_kernel_launches{kernel="fused_split"} 3' in text
+        assert 'noise_ec_kernel_launches{kernel="fused_encode"} 0' in text
+        family = default_registry().gauge("noise_ec_kernel_launches")
+        read = {key[0]: child.read() for key, child in family.children()}
+        assert read == {name: float(n) for name, n in launch_counts().items()}
+    finally:
+        reset_launch_counts()
+    assert 'noise_ec_kernel_launches{kernel="fused_split"} 0' in (
+        render_prometheus())
 
 
 def test_every_public_entry_is_counted_and_timed(rng):

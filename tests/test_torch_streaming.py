@@ -237,3 +237,31 @@ def test_stream_on_cuda_matches_cpu(rng, k, r):
         ((c.index, c.shards[present]) for c in got), present)
     for (_, a), c in zip(rows, got):
         np.testing.assert_array_equal(a, c.shards)
+
+
+@pytest.mark.parametrize("field", ["gf256", "gf65536"])
+def test_r0_stream_gives_data_only_chunks_like_the_reference(field):
+    """r = 0: five data-only (4, 256) chunks, equal to the reference's on
+    its XLA path (``kernel="auto"`` on a CPU), and the stream joins back."""
+    data = bytes(range(256)) * 20
+    enc = StreamingEncoder(4, 0, chunk_bytes=1024, field=field, device="cpu")
+    got = list(enc.encode_bytes(data))
+    want = list(RefEncoder(4, 0, chunk_bytes=1024,
+                           field=field).encode_bytes(data))
+    assert [c.shards.shape for c in got] == [(4, 256)] * 5
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert (a.index, a.data_len) == (b.index, b.data_len)
+        np.testing.assert_array_equal(a.shards, np.asarray(b.shards))
+    assert decode_stream(got, 4) == data
+
+
+@pytest.mark.parametrize("field", ["gf256", "gf65536"])
+def test_r0_batch_encode_returns_the_data(rng, field):
+    dt = np.uint8 if field == "gf256" else np.uint16
+    D = rng.integers(0, 256, (3, 4, 64)).astype(dt)
+    got = BatchCodec(4, 0, field=field, device="cpu").encode_batch(D)
+    want = np.asarray(RefBatchCodec(4, 0, field=field).encode_batch(D))
+    assert got.shape == (3, 4, 64)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, D)
