@@ -161,6 +161,21 @@ before printing any result. Phases (one JSON line each):
    ``record_kernel`` and the breaker alone, and the two cases with those
    layers on and off in turn in one process
    (``noise_ec_tpu_torch/tools/layer_cost.py``);
+   mesh — the mesh tier on the one card: the default router disabled
+   (``noise_ec_mesh_devices`` reads 1); a router over ``cuda:0`` listed
+   four times, each position on its own stream, running RS(10,4) and
+   RS(50,20) words batches at 1 MiB shards (B = 5 and 8, K5 on every
+   shard), an RS(229,6) panel batch (K6 -> K7, tile-labelled), a GF(2^16)
+   RS(10,4) byte-sliced batch, a chained encode -> decode1 (the decode
+   reshards nothing) and ``make_sharded_encoder_words`` over a (2, 2) mesh
+   at RS(10,4) (K5) and the near-limit RS(200,56) (K8), each byte-equal
+   to the single-device route and the host on a 64 KiB slice, with each
+   run's launches a shard (``by_run``); ``multihost.initialize`` as a
+   world of one over NCCL in a child process, with one sharded encode;
+   the peak memory over 50 donated steady-state batch encodes (no growth
+   after the first); and RS(10,4) B = 8 sharded against unsharded
+   (four positions of one card show the split's overhead, not multi-GPU
+   speed);
 5. node, after every timed phase (its threads, sockets and objects stay
    out of their process state) — the reference's program on the port
    (``noise_ec_tpu_torch.host``, with the Ed25519 backend named): 4
@@ -236,8 +251,10 @@ records, reads 0 for "error" and "open"), the breaker refused no product
 (``noise_ec_codec_refused_total``; the resilience phase, the ones it
 provokes), the codec breaker is closed, the device gate is idle, every
 public-entry call of the phase was timed by ``device_op`` (less the one
-launch the resilience phase makes fail), and each entry it used has
-execute-route observations. A miss fails the run.
+launch the resilience phase makes fail), each entry it used has
+execute-route observations, every tile label names a K7 plan, the
+main path's and the mesh's panel dispatches carry one, and their warm
+stripes calls reused staging pages. A miss fails the run.
 
 Then a ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
 ``--panel-sweep`` adds, before those two lines, K7's time under other
@@ -2109,7 +2126,8 @@ def phase_main_path(rng, codecs: dict) -> dict:
             "rs_200_56_erasures": list(WIDE_LOST),
             "rs_200_56_recovery_plan_seconds": plan_s,
             "rs_229_6_object_bytes": len(obj229),
-            "rs_229_6_erasures": [0, 117, 231]}
+            "rs_229_6_erasures": [0, 117, 231],
+            "panel_entries": True, "warm_stripes": True}
 
 
 def phase_times(rng, device, results: dict) -> dict:
@@ -3513,6 +3531,297 @@ def phase_mxu_sweep(rng, device) -> dict:
                 "mxu_probe", "").splitlines() if "spill" in ln]}
 
 
+MESH_POSITIONS = 4        # cuda:0 listed four times: one stream a position
+MESH_DONATED_STEPS = 50   # steady-state donated batch encodes
+MESH_WIDE_SHARD = 256 << 10   # RS(200,56) builder shards (4 x 200 MiB in)
+MULTIHOST_TIMEOUT_S = 120.0
+
+# One process joins a world of one over NCCL on the card and runs one
+# sharded encode through the global mesh (the all-gather over the group
+# runs, with one rank). Prints one JSON line.
+_MULTIHOST_CHILD = r"""
+import json, sys
+import numpy as np, torch, torch.distributed as dist
+from noise_ec_tpu_torch.matrix import host_matvec
+from noise_ec_tpu_torch.parallel import multihost
+from noise_ec_tpu_torch.parallel.batch import BatchCodec
+port, seed, tw = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+multihost.initialize(f"127.0.0.1:{port}", 1, 0)
+n = len(multihost.global_devices())
+mesh = multihost.global_mesh(("batch", "row"), (1, n))
+bc = BatchCodec(10, 4)
+words = np.random.default_rng(seed).integers(
+    0, 1 << 32, size=(2, 10, tw), dtype=np.uint64).astype(np.uint32)
+enc = bc.make_sharded_encoder_words(mesh, row_axis="row")
+out = multihost.fetch_to_every_host(
+    enc(multihost.replicate_to_global(words, mesh)))
+cols = 16384
+ok = all(np.array_equal(
+    np.ascontiguousarray(out[b, :, :cols]).view(np.uint8),
+    host_matvec(bc.gf, bc.parity_matrix,
+                np.ascontiguousarray(words[b, :, :cols]).view(np.uint8)))
+    for b in range(2))
+print(json.dumps({"backend": dist.get_backend(),
+                  "world": dist.get_world_size(), "positions": n,
+                  "mesh": mesh.shape, "home": str(mesh.home),
+                  "shape": list(out.shape), "equal_to_host": ok}))
+dist.destroy_process_group()
+"""
+
+
+def device_words(gen: torch.Generator, shape, device) -> torch.Tensor:
+    """Random int32 words made on the card from ``gen`` (seeded from the
+    run's seed): the mesh phase's inputs run to gigabytes."""
+    return torch.randint(-2**31, 2**31, shape, dtype=torch.int32,
+                         device=device, generator=gen)
+
+
+def mesh_counters() -> dict:
+    from noise_ec_tpu_torch.obs import default_registry
+
+    reg = default_registry()
+    return {
+        "shard_map": reg.counter("noise_ec_mesh_sharded_dispatches_total")
+        .labels(mode="shard_map").value,
+        "reshard": reg.counter("noise_ec_mesh_reshard_total").labels().value,
+        "tile_dispatches": sum(c.value for _, c in reg.counter(
+            "noise_ec_kernel_tile_dispatches_total").children()),
+    }
+
+
+def multihost_world_of_one(rng) -> dict:
+    """``multihost.initialize`` as a world of one over NCCL in a child
+    process, with ``global_mesh``, ``replicate_to_global``,
+    ``fetch_to_every_host`` and one sharded encode at 1 MiB shards."""
+    port = free_ports(1)[0]
+    proc = subprocess.run(
+        [sys.executable, "-c", _MULTIHOST_CHILD, str(port),
+         str(int(rng.integers(1 << 30))), str(TW)],
+        capture_output=True, text=True, timeout=MULTIHOST_TIMEOUT_S,
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        env=dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [os.path.dirname(os.path.abspath(__file__))]
+            + [p for p in [os.environ.get("PYTHONPATH")] if p])))
+    check(proc.returncode == 0,
+          f"multihost child exited {proc.returncode}: {proc.stderr[-3000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(res["backend"] == "nccl" and res["world"] == 1,
+          f"a world of one over NCCL: {res}")
+    check(res["equal_to_host"], "the multihost encode equals the host")
+    return res
+
+
+def phase_mesh(rng, device) -> dict:
+    """The mesh tier and the sharded builders on the one card.
+
+    The default router on a one-card host is disabled and the
+    ``noise_ec_mesh_devices`` gauge reads 1. A router configured over
+    ``cuda:0`` listed four times (each position its own stream) then runs,
+    byte-equal to the single-device route and to the host arithmetic on a
+    64 KiB slice: RS(10,4) and RS(50,20) words batches at 1 MiB shards, B
+    = 5 and B = 8 (K5 on every shard); an RS(229,6) panel batch (K6 -> K7
+    -> K6, tile-labelled); a GF(2^16) RS(10,4) byte-sliced stripes batch
+    (K5); a chained encode -> decode1 with the reshard counter still; and
+    ``make_sharded_encoder_words`` over a (2, 2) mesh, RS(10,4) (K5) and
+    the near-limit RS(200,56) (K8 per row slice). Each run's launches are
+    counted per shard. Then the multihost world of one over NCCL, the
+    peak memory over 50 donated steady-state batch encodes (it must not
+    grow after the first), and the sharded against the unsharded batch
+    time: four positions of one card show the overhead of the split, not
+    multi-GPU speed."""
+    from noise_ec_tpu_torch.matrix import generator_matrix, host_matvec
+    from noise_ec_tpu_torch.obs import default_registry
+    from noise_ec_tpu_torch.ops import launch_counts, reset_launch_counts
+    from noise_ec_tpu_torch.ops.dispatch import DeviceCodec
+    from noise_ec_tpu_torch.parallel.batch import BatchCodec
+    from noise_ec_tpu_torch.parallel.mesh import (
+        configure_mesh_router,
+        make_mesh,
+        mesh_router,
+        reset_mesh_router,
+    )
+
+    reg = default_registry()
+    gen = torch.Generator(device=device).manual_seed(
+        int(rng.integers(1 << 62)))
+    parts, t_part = {}, [time.monotonic()]
+
+    def part(name):
+        now = time.monotonic()
+        parts[name] = now - t_part[0]
+        t_part[0] = now
+
+    reset_mesh_router()
+    default = mesh_router()
+    gauge = dict(reg.gauge("noise_ec_mesh_devices").children())[()].read()
+    check(not default.enabled and gauge == 1,
+          f"the default router on {torch.cuda.device_count()} card(s) is "
+          f"disabled ({default.enabled}) and the gauge reads 1 ({gauge})")
+    report = {"phase": "mesh", "card": nvidia_smi(),
+              "default_router": {"enabled": default.enabled,
+                                 "mesh_devices": gauge},
+              "positions": MESH_POSITIONS, "panel_entries": True,
+              "warm_stripes": True}
+    codec = DeviceCodec(device=device)
+    codec16 = DeviceCodec(field="gf65536", device=device)
+    router = configure_mesh_router(devices=[device] * MESH_POSITIONS,
+                                   enable=True)
+    streams = [router.mesh_for(MESH_POSITIONS).stream(i)
+               for i in range(MESH_POSITIONS)]
+    check(len({s.cuda_stream for s in streams}) == MESH_POSITIONS
+          and torch.cuda.current_stream(device).cuda_stream not in
+          {s.cuda_stream for s in streams},
+          "each position runs on its own stream")
+    by_run, cols = {}, HOST_SLICE // 4
+
+    def counted(name, fn, kernel, per_shard=1):
+        """``fn`` with the launch counts zeroed just before and read just
+        after; ``kernel`` must have launched ``per_shard`` times a
+        position."""
+        reset_launch_counts()
+        before = mesh_counters()
+        out = fn()
+        torch.cuda.synchronize()
+        after = mesh_counters()
+        launches = {k: v for k, v in launch_counts().items() if v}
+        by_run[name] = {"launches": launches,
+                        **{k: after[k] - before[k] for k in after}}
+        check(launches.get(kernel, 0) == per_shard * MESH_POSITIONS,
+              f"{name}: {kernel} launched {per_shard} a shard "
+              f"({launches})")
+        return out
+
+    def unsharded(fn):
+        router.enabled = False
+        try:
+            return fn()
+        finally:
+            router.enabled = True
+
+    def host_equal(M, words, out, gf=None):
+        gf = codec.gf if gf is None else gf
+        for b in (0, words.shape[0] - 1):
+            want = host_matvec(gf, M, words[b, :, :cols].cpu().numpy()
+                               .view(np.uint8))
+            check(np.array_equal(out[b, :, :cols].cpu().numpy()
+                                 .view(np.uint8), want), "host slice")
+
+    for k, r in ((10, 4), (50, 20)):
+        G = generator_matrix(codec.gf, k, k + r, "cauchy")
+        for B in (5, 8):
+            words = device_words(gen, (B, k, TW), device)
+            name = f"rs_{k}_{r}_b{B}"
+            got = counted(name, lambda: codec.matmul_words_batch(
+                G[k:], words), "fused_split")
+            check(torch.equal(got, unsharded(
+                lambda: codec.matmul_words_batch(G[k:], words))),
+                f"{name} equals the single-device route")
+            host_equal(G[k:], words, got)
+            check(by_run[name]["shard_map"] == 1, f"{name} sharded once")
+    part("words_batches")
+
+    G229 = generator_matrix(codec.gf, 229, 235, "cauchy")
+    w229 = device_words(gen, (4, 229, (64 << 10) // 4), device)
+    got = counted("rs_229_6_b4", lambda: codec.matmul_words_batch(
+        G229[229:], w229), "gf2mm_panel")
+    check(by_run["rs_229_6_b4"]["launches"].get("pack_lanes_blocked") == 4,
+          "K6 packed every shard")
+    check(by_run["rs_229_6_b4"]["tile_dispatches"] == 1,
+          "the sharded panel dispatch carries a tile label")
+    check(torch.equal(got, unsharded(
+        lambda: codec.matmul_words_batch(G229[229:], w229))),
+        "RS(229,6) equals the single-device route")
+    host_equal(G229[229:], w229, got)
+    part("panel_batch")
+
+    G16 = generator_matrix(codec16.gf, 10, 14, "cauchy")
+    Ds = [rng.integers(0, 1 << 16, size=(10, SHARD // 2)).astype(np.uint16)
+          for _ in range(5)]
+    got16 = counted("gf16_rs_10_4_b5", lambda: codec16.matmul_stripes_many(
+        G16[10:], Ds), "fused_split")
+    single16 = unsharded(lambda: codec16.matmul_stripes_many(G16[10:], Ds))
+    for D, g, s in zip(Ds, got16, single16):
+        check(np.array_equal(g, s), "GF(2^16) equals the single-device route")
+        check(np.array_equal(g[:, :cols], host_matvec(
+            codec16.gf, G16[10:], D[:, :cols])), "GF(2^16) host slice")
+    part("gf16_batch")
+
+    G = generator_matrix(codec.gf, 10, 14, "cauchy")
+    words = device_words(gen, (8, 10, TW), device)
+    flip = int(np.uint32(0xA5A5A5A5).view(np.int32))
+
+    def chained():
+        parity = router.matmul_words_batch(codec, G[10:], words)
+        data = router.shard(words)
+
+        def assemble(d, p):
+            full = torch.cat([d, p], dim=1)
+            full[:, 5] ^= flip
+            return full
+
+        return router.decode1_words_batch(codec, G[10:], 5,
+                                          data.map(assemble, parity))
+
+    corrected, bad = counted("chained_encode_decode1", chained,
+                             "fused_split", per_shard=2)
+    check(by_run["chained_encode_decode1"]["reshard"] == 1,
+          "only the encode's plain-tensor input resharded")
+    check(not bad.to_tensor().any().item(), "decode1 verifies everywhere")
+    check(torch.equal(corrected.to_tensor(), words[:, 5]),
+          "decode1 corrects the flipped row")
+    part("chained")
+
+    mesh22 = make_mesh(("batch", "row"), (2, 2), [device] * MESH_POSITIONS)
+    bc = BatchCodec(10, 4)
+    got = counted("builder_rs_10_4", lambda: bc.make_sharded_encoder_words(
+        mesh22, row_axis="row")(words[:4]), "fused_split")
+    check(torch.equal(got, unsharded(lambda: codec.matmul_words_batch(
+        G[10:], words[:4]))), "the (2,2) builder equals the codec")
+    bc200 = BatchCodec(200, 56)
+    w200 = device_words(gen, (4, 200, MESH_WIDE_SHARD // 4), device)
+    got = counted("builder_rs_200_56_k8", lambda: bc200.make_sharded_encoder_words(
+        mesh22, row_axis="row")(w200), "mxu_gf2")
+    host_equal(bc200.parity_matrix, w200, got)
+    part("builders")
+    report["by_run"] = by_run
+    report["multihost"] = multihost_world_of_one(rng)
+    part("multihost")
+
+    # Steady state: 50 donated batch encodes, each input made and dropped
+    # in turn; the peak must not grow after the first.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    peaks = []
+    for _ in range(MESH_DONATED_STEPS):
+        x = device_words(gen, (8, 10, TW), device)
+        out = codec.matmul_words_batch(G[10:], x, donate=True)
+        del x, out
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated(device))
+    check(max(peaks[1:]) <= peaks[0],
+          f"the donated steady state's peak grew: {peaks[0]} -> "
+          f"{max(peaks[1:])}")
+    report["donated_peak_bytes"] = {"first": peaks[0], "max_after": max(
+        peaks[1:]), "steps": MESH_DONATED_STEPS}
+    part("donated")
+
+    timer = Timer(device)
+    sharded_ms = timer.median_ms(
+        lambda: codec.matmul_words_batch(G[10:], words))
+    single_ms = unsharded(lambda: timer.median_ms(
+        lambda: codec.matmul_words_batch(G[10:], words)))
+    report["times"] = {
+        "card": report["card"], "case": "RS(10,4) matmul_words_batch, "
+        "B = 8 at 1 MiB shards", "sharded_ms": sharded_ms,
+        "unsharded_ms": single_ms,
+        "note": "four positions of one card: the overhead of the split, "
+                "not multi-GPU speed"}
+    part("times")
+    report["part_seconds"] = parts
+    reset_mesh_router()
+    return report
+
+
 def nvidia_smi() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -3531,6 +3840,10 @@ def obs_counts() -> dict:
     reg = default_registry()
     refused = reg.counter("noise_ec_codec_refused_total")
     return {
+        "tiles": {key: c.value for key, c in reg.counter(
+            "noise_ec_kernel_tile_dispatches_total").children()},
+        "pool_hits": reg.counter(
+            "noise_ec_device_buffer_pool_hits_total").labels().value,
         "calls": {key[0]: c.value for key, c in reg.counter(
             "noise_ec_kernel_calls_total").children()},
         "ops": {key: h.count for key, h in reg.histogram(
@@ -3549,7 +3862,12 @@ def phase_health(before: dict, report: dict) -> dict:
     the phase made was timed by ``device_op`` (compile plus execute
     observations equal the calls, less the calls the phase made fail on
     purpose, ``report["failed_calls"]``), and each entry it used has
-    execute-route observations. Raises on a miss."""
+    execute-route observations. Every panel dispatch's tile label names a
+    K7 plan; a phase that drives panel-routed entries
+    (``report["panel_entries"]``) labelled some, and one that repeats its
+    stripes shapes (``report["warm_stripes"]``) reused staging pages
+    (``noise_ec_device_buffer_pool_hits_total`` moved). Raises on a
+    miss."""
     from noise_ec_tpu_torch.obs import default_registry
     from noise_ec_tpu_torch.ops.dispatch import codec_breaker, device_gate
 
@@ -3586,8 +3904,20 @@ def phase_health(before: dict, report: dict) -> dict:
         check(after["ops"].get((entry, "execute"), 0) > 0,
               f"{entry} has execute-route observations")
         entries[entry] = {"calls": calls, **seen}
+    tiles = {f"{key[0]}/{key[1]}": n - before["tiles"].get(key, 0)
+             for key, n in after["tiles"].items()
+             if n - before["tiles"].get(key, 0) > 0}
+    for name in tiles:
+        check(re.fullmatch(r"[a-z_0-9]+/kt\d+_rg\d+_wr\d+_wc\d+_g\d+",
+                           name) is not None,
+              f"tile label {name} names a K7 plan")
+    if report.get("panel_entries"):
+        check(tiles, "the panel dispatches carry a tile label")
+    pool_hits = after["pool_hits"] - before["pool_hits"]
+    if report.get("warm_stripes"):
+        check(pool_hits > 0, "warm stripes calls reused staging pages")
     return {"fallbacks": fallbacks, "refused": refused, "breaker": state,
-            "entries": entries}
+            "entries": entries, "tiles": tiles, "pool_hits": pool_hits}
 
 
 def phase_resilience(rng) -> dict:
@@ -5078,9 +5408,17 @@ def phase_chaos_obs(rng) -> dict:
                 except FileNotFoundError:
                     return set()
 
-            wait_until(lambda: len(received() & set(names)) == CHAOS_MSGS
-                       or not all(n.proc.poll() is None for n in started),
-                       CHAOS_WAIT_S, "every chaos message delivered")
+            deadline = time.monotonic() + CHAOS_WAIT_S
+            while not (len(received() & set(names)) == CHAOS_MSGS
+                       or not all(n.proc.poll() is None for n in started)):
+                # What B got and logged, for the failure's message.
+                check(time.monotonic() < deadline,
+                      f"every chaos message delivered within "
+                      f"{CHAOS_WAIT_S:g} s ({len(received() & set(names))}"
+                      f"/{CHAOS_MSGS}; e2e outcomes {e2e_outcomes(url_b)}; "
+                      f"B's last lines: {''.join(b.lines[-12:])}; A's: "
+                      f"{''.join(a.lines[-6:])})")
+                time.sleep(0.05)
             report["delivered_seconds"] = time.perf_counter() - t_send
             report["send_proxy_s"] = t_send - t_proxy
             got = received()
@@ -5471,6 +5809,7 @@ def main() -> int:
     timed(phase_words16_times, rng, device, results)
     timed(phase_dense_times, rng, device, results)
     timed(phase_fec_times, rng, device)
+    timed(phase_mesh, rng, device)
     if args.panel_sweep:
         timed(phase_panel_sweep, rng, device)
     if args.mxu_sweep:

@@ -4,7 +4,9 @@ The JAX package stays beside it as the reference; this package imports
 neither it nor jax. It covers the Reed-Solomon codec over GF(2^8) and
 GF(2^16) (``codec.ReedSolomon``), the infectious-style ``codec.FEC`` with
 Berlekamp-Welch correction of corrupted shares (``matrix.bw``), batched
-and streaming encode and decode on one device (``parallel``), the
+and streaming encode and decode, sharded over a device mesh and across
+processes (``parallel``: the mesh tier, the sharded builders,
+``multihost``), the
 locally-repairable code (``codec.LocalReconstructionCode``), the hardware
 check (``tools.hwcheck``), observability (``obs``), the codec breaker and
 the peer supervisor (``resilience``), the native host codec (``shim``,

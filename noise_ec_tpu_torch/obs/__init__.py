@@ -16,7 +16,8 @@ Port of ``noise_ec_tpu.obs``:
 - :mod:`obs.profiling` — per-kernel call and byte counters and a
   ``torch.profiler`` capture;
 - :mod:`obs.device` — per-dispatch latency with a compile/execute split,
-  plan-derived program costs and device-memory gauges;
+  plan-derived program costs, the panel route's per-tile attribution and
+  device-memory gauges;
 - :mod:`obs.trace` — the span tracer (stages keyed by the message's
   signature, request-scoped traces with tail sampling) that stamps every
   event with the active trace id and the node;
@@ -48,6 +49,7 @@ from noise_ec_tpu_torch.obs.device import (
     device_op,
     hbm_snapshot,
     peak_hbm_gbps,
+    roofline_summary,
 )
 from noise_ec_tpu_torch.obs.diagnose import DiagnosisEngine
 from noise_ec_tpu_torch.obs.events import EventLog, default_event_log, event
@@ -93,6 +95,7 @@ __all__ = [
     "node_attrs",
     "peak_hbm_gbps",
     "record_e2e",
+    "roofline_summary",
     "set_build_info",
     "span",
     "to_chrome_trace",

@@ -26,9 +26,17 @@ Port of ``noise_ec_tpu.obs.device`` for the CUDA card. Three surfaces:
   seconds) over :func:`peak_hbm_gbps` at collect time, only for entries
   whose host time covers the device's work (``synced``): a submit time
   says nothing of the card's bandwidth, so the words entries export none.
+- **Per-tile attribution** — a dispatch on the panel route names its
+  K7 plan in :attr:`DeviceOpTimer.tile` (``ops/dispatch.py``
+  ``tile_label``), and the exit path feeds
+  ``noise_ec_kernel_tile_{dispatches,bytes}_total{entry,tile}`` and, on
+  the execute route of a synced entry, the
+  ``noise_ec_kernel_tile_utilization`` gauge (:func:`record_tile_dispatch`,
+  :func:`tile_summary`).
 - **Device memory** — :func:`hbm_snapshot` reads
   ``torch.cuda.memory_allocated`` / ``max_memory_allocated`` /
-  ``mem_get_info``, exported as callback gauges.
+  ``mem_get_info``, exported as callback gauges; :func:`roofline_summary`
+  folds it into one flat report with the achieved bandwidths.
 
 Hot-path budget: a warm dispatch pays one perf_counter pair and one
 cached-child histogram observe.
@@ -52,8 +60,13 @@ __all__ = [
     "install_hbm_gauges",
     "maybe_analyze_program",
     "peak_hbm_gbps",
+    "record_tile_dispatch",
+    "reset_dispatch_tracking",
+    "roofline_summary",
     "set_analysis_interval",
     "set_peak_hbm_gbps",
+    "tile_achieved_gbps",
+    "tile_summary",
 ]
 
 log = logging.getLogger("noise_ec_tpu_torch.obs")
@@ -89,16 +102,30 @@ def peak_hbm_gbps() -> float:
     return _PEAK_GBPS
 
 
+def reset_dispatch_tracking() -> None:
+    """Forget the per-kernel and per-tile bandwidth stats and the analysis
+    clock (tests)."""
+    with _lock:
+        _op_stats.clear()
+        _tile_stats.clear()
+        _last_analysis.clear()
+
+
 class DeviceOpTimer:
     """Times one dispatch and records it under its route on exit; a
     dispatch that raises records nothing.
 
     A class-based context manager: the generator machinery costs ~3x on
     a path measured in microseconds.
+
+    ``tile`` is the per-dispatch tile attribution: a dispatch that runs
+    the block-panel kernel K7 sets it to its plan's ``tile_label`` before
+    the window closes, and the exit path feeds the
+    ``noise_ec_kernel_tile_*`` families (:func:`record_tile_dispatch`).
     """
 
     __slots__ = ("entry", "route", "nbytes", "registry", "synced",
-                 "elapsed", "_t0")
+                 "elapsed", "tile", "_t0")
 
     def __init__(self, entry: str, route: str, nbytes: int,
                  registry: Optional[Registry], synced: bool):
@@ -110,6 +137,7 @@ class DeviceOpTimer:
         self.registry = registry
         self.synced = synced
         self.elapsed = 0.0
+        self.tile = ""
 
     def __enter__(self) -> "DeviceOpTimer":
         self._t0 = time.perf_counter()
@@ -143,6 +171,11 @@ class DeviceOpTimer:
                     _install_utilization_gauge(self.entry, reg)
                 st[0] += self.nbytes
                 st[1] += self.elapsed
+        if self.tile:
+            record_tile_dispatch(
+                self.entry, self.tile, self.nbytes, self.elapsed,
+                route=self.route, synced=self.synced, registry=reg,
+            )
         return False
 
     def _record_compile(self, reg: Optional[Registry]) -> None:
@@ -207,6 +240,95 @@ def _install_utilization_gauge(entry: str,
         )
     except Exception:  # noqa: BLE001 — a gauge must not fail a dispatch
         log.debug("roofline gauge install failed for %s", entry)
+
+
+# -------------------------------------------------- per-tile attribution
+#
+# K7's planner picks a block shape per matrix (ops/panel.py panel_plan:
+# the K tile, the row groups and their warps, the column warps, and the G
+# launches its K axis is split into). These families make the chosen
+# shape a LABEL, so whether a plan delivers is answerable per shape:
+# dispatch and byte counters, and an achieved-bandwidth-over-peak gauge
+# per (entry, tile) for the entries whose host time covers the card's work.
+
+# (entry, tile) -> [execute_bytes_total, execute_seconds_total]
+_tile_stats: dict[tuple[str, str], list] = {}
+_tile_children: dict[tuple[str, str], tuple] = {}
+
+
+def tile_achieved_gbps(entry: str, tile: str) -> float:
+    """Cumulative execute-route payload bandwidth for one (kernel entry,
+    tile) pair of a synced entry (0.0 until a warm dispatch lands)."""
+    with _lock:
+        st = _tile_stats.get((entry, tile))
+    if not st or st[1] <= 0:
+        return 0.0
+    return st[0] / st[1] / 1e9
+
+
+def record_tile_dispatch(entry: str, tile: str, nbytes: int,
+                         seconds: float, *, route: str = "execute",
+                         synced: bool = True,
+                         registry: Optional[Registry] = None) -> None:
+    """Attribute one dispatch to its tile (module comment). Every
+    dispatch counts its call and bytes; only an execute-route dispatch of
+    a synced entry feeds the bandwidth stats: a call that plans is not
+    kernel time, and a submit time says nothing of the card's bandwidth."""
+    if registry is None:
+        pair = _tile_children.get((entry, tile))
+        if pair is None:
+            r = default_registry()
+            pair = _tile_children[(entry, tile)] = (
+                r.counter("noise_ec_kernel_tile_dispatches_total").labels(
+                    entry=entry, tile=tile
+                ),
+                r.counter("noise_ec_kernel_tile_bytes_total").labels(
+                    entry=entry, tile=tile
+                ),
+            )
+    else:
+        pair = (
+            registry.counter(
+                "noise_ec_kernel_tile_dispatches_total"
+            ).labels(entry=entry, tile=tile),
+            registry.counter(
+                "noise_ec_kernel_tile_bytes_total"
+            ).labels(entry=entry, tile=tile),
+        )
+    pair[0].add(1)
+    pair[1].add(nbytes)
+    if route != "execute" or not synced:
+        return
+    reg = registry if registry is not None else default_registry()
+    with _lock:
+        st = _tile_stats.get((entry, tile))
+        fresh = st is None
+        if fresh:
+            st = _tile_stats[(entry, tile)] = [0.0, 0.0]
+        st[0] += nbytes
+        st[1] += seconds
+    if fresh:
+        try:
+            reg.gauge("noise_ec_kernel_tile_utilization").set_callback(
+                lambda e=entry, t=tile: (
+                    tile_achieved_gbps(e, t) / max(peak_hbm_gbps(), 1e-9)
+                ),
+                entry=entry, tile=tile,
+            )
+        except Exception:  # noqa: BLE001 — telemetry must not raise
+            log.debug("tile gauge install failed for %s/%s", entry, tile)
+
+
+def tile_summary() -> dict:
+    """Flat per-(entry, tile) achieved GB/s for report output."""
+    out: dict = {}
+    with _lock:
+        keys = list(_tile_stats)
+    for entry, tile in keys:
+        a = tile_achieved_gbps(entry, tile)
+        if a > 0:
+            out[f"device_tile_{entry}_{tile}_gbps"] = round(a, 2)
+    return out
 
 
 # Dispatch-time analysis rate limit: one analysis per kernel entry per
@@ -320,3 +442,24 @@ def install_hbm_gauges(registry: Optional[Registry] = None) -> None:
         )
     except Exception:  # noqa: BLE001 — gauge install must not fail callers
         log.debug("hbm gauge install failed")
+
+
+def roofline_summary() -> dict:
+    """Flat dict for report output: per-kernel achieved GB/s and
+    utilization of the synced entries, plus the device memory snapshot
+    (MiB) where there is a card."""
+    out: dict = {}
+    with _lock:
+        entries = list(_op_stats)
+    for entry in entries:
+        a = achieved_gbps(entry)
+        if a > 0:
+            out[f"device_{entry}_achieved_gbps"] = round(a, 2)
+            out[f"device_{entry}_utilization"] = round(
+                a / max(peak_hbm_gbps(), 1e-9), 4
+            )
+    hbm = hbm_snapshot()
+    if hbm:
+        out["hbm_live_mib"] = round(hbm.get("live_bytes", 0) / 2**20, 1)
+        out["hbm_peak_mib"] = round(hbm.get("peak_bytes", 0) / 2**20, 1)
+    return out

@@ -69,9 +69,20 @@ Around the codec, as in the reference:
   through ``matmul_stripes``, ``decode1_words_bytesliced`` through
   ``matmul_words_bytesliced``.
 
-Left out for now (ROADMAP queue 1 item 6): the mesh tier, and buffer
-donation (``matmul_words_batch(donate=True)``: the streaming window keeps a
-ring of device buffers instead, parallel/streaming.py).
+- the **mesh tier** (parallel/mesh.py): ``matmul_stripes_many`` (both
+  fields, through the byte rows) and ``matmul_words_batch`` (GF(2^8))
+  consult :func:`~noise_ec_tpu_torch.parallel.mesh.mesh_router` where the
+  reference does, and a batch of B > 1 that is not on the "mxu" route runs
+  as one sharded dispatch inside the entry's one gate slot and
+  ``device_op`` window; each shard runs the internal route below, never a
+  public entry, and a shard's error reaches the caller (and the codecs'
+  breaker) as any dispatch error does;
+- **staging and donation**: :class:`StagingPool` counts its reuse
+  (``noise_ec_device_buffer_pool_{hits,misses}_total``) and keeps the
+  exactly-once donation record of ``matmul_words_batch(donate=True)``;
+- **tile attribution**: a dispatch on the panel route names its K7 plan
+  (:func:`tile_label`) in its ``device_op`` window and counts its K
+  sub-launches (:func:`record_sublaunch_dispatch`).
 """
 
 from __future__ import annotations
@@ -79,6 +90,7 @@ from __future__ import annotations
 import logging
 import threading
 import time
+import weakref
 from collections import deque
 from typing import Optional
 
@@ -663,15 +675,44 @@ def _quantum(kind: str) -> int:
     return MXU_TILE_WORDS if kind == "mxu" else WORD_QUANTUM
 
 
+def tile_label(tiles, G: int) -> str:
+    """A K7 plan (its :class:`~noise_ec_tpu_torch.ops.gf2tile.MaskTiles`
+    and G) as the ``tile`` label of the ``noise_ec_kernel_tile_*``
+    families: the K tile, the row groups and their warps, the column warps
+    and the K sub-launches (the reference's ``kb{KB}_rb{RB}_tl{TL}``
+    names its own plan's shape)."""
+    return (f"kt{tiles.KT}_rg{tiles.NRG}_wr{tiles.WR}_wc{tiles.WC}"
+            f"_g{G}")
+
+
+_sublaunch_children: dict[str, object] = {}
+
+
+def record_sublaunch_dispatch(entry: str, g: int) -> None:
+    """Count a panel-routed dispatch's G K sub-launches against
+    ``noise_ec_kernel_sublaunch_dispatches_total{entry}``, as the
+    reference does on every panel dispatch (G is 1 where the plan splits
+    no K axis)."""
+    child = _sublaunch_children.get(entry)
+    if child is None:
+        child = _sublaunch_children[entry] = default_registry().counter(
+            "noise_ec_kernel_sublaunch_dispatches_total"
+        ).labels(entry=entry)
+    child.add(g)
+
+
 class StagingPool:
     """Reusable host staging buffers per shape, pinned when the codec runs
     on the card (the counterpart of the reference's ``DeviceBufferPool``),
-    so a call pays the payload copy and not a pinned allocation.
+    so a call pays the payload copy and not a pinned allocation, and the
+    donation record of the tensors callers hand to the words entries.
 
     The pad columns past a payload are not zeroed: the product is
     positionwise, and their output columns are dropped. A buffer backs an
     asynchronous host-to-device copy, so release it only after that
-    dispatch's output has come back.
+    dispatch's output has come back. ``noise_ec_device_buffer_pool_
+    {hits,misses}_total`` count the reuse: a buffer from the pool is a
+    hit, a fresh allocation a miss.
     """
 
     def __init__(self, pin: bool, max_per_key: int = 8):
@@ -679,12 +720,22 @@ class StagingPool:
         self.max_per_key = max_per_key
         self._lock = threading.Lock()
         self._free: dict[tuple[int, int], list[torch.Tensor]] = {}
+        # id(tensor) -> weakref: present means the tensor was donated.
+        self._donated: dict[int, weakref.ref] = {}
+        reg = default_registry()
+        self._hits = reg.counter(
+            "noise_ec_device_buffer_pool_hits_total").labels()
+        self._misses = reg.counter(
+            "noise_ec_device_buffer_pool_misses_total").labels()
 
     def acquire(self, rows: int, cols: int) -> torch.Tensor:
         with self._lock:
             stack = self._free.get((rows, cols))
-            if stack:
-                return stack.pop()
+            buf = stack.pop() if stack else None
+        if buf is not None:
+            self._hits.add(1)
+            return buf
+        self._misses.add(1)
         return torch.empty((rows, cols), dtype=torch.uint8,
                            pin_memory=self.pin)
 
@@ -693,6 +744,25 @@ class StagingPool:
             stack = self._free.setdefault(tuple(buf.shape), [])
             if len(stack) < self.max_per_key:
                 stack.append(buf)
+
+    def donate(self, x) -> None:
+        """Record that a caller handed ``x`` over (``donate=True``). A
+        tensor may be donated exactly once: a second donation of the same
+        live tensor is a use after free in waiting, and raises."""
+        key = id(x)
+        with self._lock:
+            prior = self._donated.get(key)
+            if prior is not None and prior() is x:
+                raise RuntimeError(
+                    "device buffer donated twice (donation hands the "
+                    "input over exactly once)")
+            self._donated[key] = weakref.ref(
+                x, lambda _, k=key: self._donated.pop(k, None))
+
+    def was_donated(self, x) -> bool:
+        with self._lock:
+            prior = self._donated.get(id(x))
+        return prior is not None and prior() is x
 
 
 class DeviceCodec:
@@ -913,7 +983,8 @@ class DeviceCodec:
         return self.matmul_words_batch(M, words[None], tier=tier)[0]
 
     def matmul_words_batch(self, M: np.ndarray, words: torch.Tensor, *,
-                           tier: Optional[str] = None) -> torch.Tensor:
+                           tier: Optional[str] = None,
+                           donate: bool = False) -> torch.Tensor:
         """(B, k, TW) int32 words -> (B, r, TW): one launch per kernel for
         the whole batch (the kernels take the batch as a grid axis).
 
@@ -921,6 +992,14 @@ class DeviceCodec:
         the kernels at 16 planes a symbol (module doc), ``tier`` as on byte
         rows; an "mxu" matrix raises NotImplementedError there, as in the
         reference: K8 takes byte rows (:meth:`matmul_words_bytesliced`).
+
+        A GF(2^8) batch of B > 1 that is not on the "mxu" route shards over
+        the mesh router when it is enabled (parallel/mesh.py) and comes back
+        as one tensor on the codec's device. ``donate=True`` hands ``words``
+        over: recorded once (:meth:`StagingPool.donate`; a second donation
+        of the same tensor raises), and on the mesh marked in use on every
+        shard's stream, so the caller may drop it at once. Nothing is
+        written into it.
 
         Returns once the work is queued on the card: the ``device_op``
         time of this entry is the submit time. A product with no rows or
@@ -931,18 +1010,52 @@ class DeviceCodec:
         if M.size == 0 or words.shape[2] == 0:
             return words.new_zeros((words.shape[0], M.shape[0],
                                     words.shape[2]))
+        if donate:
+            self._pool.donate(words)
         nbytes = 4 * words.numel()
         route = self._admit("matmul_words", M, tier, nbytes)
         with device_gate(), device_op("matmul_words", route, nbytes,
                                       synced=False) as dt:
-            if self.sym_bytes == 1:
+            B, k, TW = words.shape
+            router = self._mesh(B, M) if self.sym_bytes == 1 else None
+            if router is not None:
+                out = router.words_product(self, M, words, tier=tier)
+                out = out.to_tensor(self.device)
+            elif self.sym_bytes == 1:
                 out = self._byte_rows(M, words, tier)
             else:
                 out = self._words16(M, words, tier)
-            B, k, TW = words.shape
+            self._label_tile(dt, M, tier, sharded=router is not None)
             s = self.sym_bytes
             self._analyze(dt, M, B * s * k, B * s * M.shape[0], TW // s)
             return out
+
+    def _mesh(self, B: int, M: np.ndarray, *, padded: bool = False):
+        """The mesh router when a batch of B products of ``M`` shards over
+        it, else None: "mxu" matrices do not shard, as in the reference,
+        and the stripes entry asks with its batch ladder-padded
+        (``padded``), as the reference's does."""
+        if B < 2:
+            return None
+        from noise_ec_tpu_torch.parallel.mesh import ladder_pad, mesh_router
+
+        router = mesh_router()
+        if not router.should_shard(ladder_pad(B) if padded else B):
+            return None
+        return None if self.route_for(M) == "mxu" else router
+
+    def _label_tile(self, dt, M: np.ndarray, tier: Optional[str], *,
+                    sharded: bool = False) -> None:
+        """On the panel route, name the dispatch's K7 plan in its
+        ``device_op`` window (:func:`tile_label`) and count its K
+        sub-launches; a sharded dispatch's are the mesh tier's
+        ("mesh_words", as in the reference)."""
+        if self.route_for(M) != "panel":
+            return
+        _, _, prog, G = self.plan_for(M, tier)
+        dt.tile = tile_label(prog, G)
+        if not sharded:
+            record_sublaunch_dispatch(dt.entry, G)
 
     def matmul_words_bytesliced(self, M: np.ndarray,
                                 words: torch.Tensor) -> torch.Tensor:
@@ -964,6 +1077,7 @@ class DeviceCodec:
         with device_gate(), device_op("matmul_words_bytesliced", route,
                                       nbytes, synced=False) as dt:
             out = self._byte_rows(M, words[None], None)[0]
+            self._label_tile(dt, M, None)
             self._analyze(dt, M, words.shape[0], 2 * M.shape[0],
                           words.shape[1])
             return out
@@ -1154,15 +1268,22 @@ class DeviceCodec:
         route = self._admit("matmul_stripes", M, tier, nbytes)
         with device_gate(), device_op("matmul_stripes", route,
                                       nbytes) as dt:
-            out = self._stripes(M, Ds, tier)
+            router = self._mesh(len(Ds), M, padded=True)
+            out = self._stripes(M, Ds, tier, router=router)
+            self._label_tile(dt, M, tier, sharded=router is not None)
             s = self.sym_bytes
             B = len(Ds)
             self._analyze(dt, M, B * s * M.shape[1], B * s * M.shape[0],
                           -(-Ds[0].nbytes // (4 * s * M.shape[1])))
             return out
 
-    def _stripes(self, M: np.ndarray, Ds: list,
-                 tier: Optional[str]) -> list:
+    def _stripes(self, M: np.ndarray, Ds: list, tier: Optional[str], *,
+                 router=None, n_dev: Optional[int] = None) -> list:
+        """Stage B same-shape (k, S) stripes as byte-row words (GF(2^16)
+        byte-sliced) in a pooled page and run their product: on the
+        codec's device, or with ``router`` sharded over its mesh (each
+        shard copied from the page to its own device; ``n_dev`` forces the
+        positions). Returns B host arrays."""
         kind = self.plan_for(M, tier)[0]
         B = len(Ds)
         k, S = Ds[0].shape
@@ -1177,10 +1298,14 @@ class DeviceCodec:
             else:
                 rows[:, :S] = D
         words = buf.view(torch.int32).reshape(B, K, TWp)
-        words = words.to(self.device, non_blocking=True)
-        out = self._byte_rows(M, words, tier).cpu()
-        # The product is on the host, so the copy out of the staging page
-        # has finished: the page may go to the next dispatch.
+        if router is not None:
+            out = router.words_product(self, M, words, tier=tier, staged=True,
+                                       n_dev=n_dev).to_tensor("cpu")
+        else:
+            words = words.to(self.device, non_blocking=True)
+            out = self._byte_rows(M, words, tier).cpu()
+        # The product is on the host, so the copies out of the staging page
+        # have finished: the page may go to the next dispatch.
         self._pool.release(buf)
         res = out.numpy().view(np.uint8)  # (B, R, 4 * TWp) byte rows
         if self.sym_bytes == 2:

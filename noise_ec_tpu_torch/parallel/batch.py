@@ -1,37 +1,60 @@
-"""Batched multi-object codec on one device (BASELINE config 3's batch).
+"""Batched multi-object codec on one device or a device mesh (BASELINE
+config 5).
 
-Port of the single-device part of ``noise_ec_tpu.parallel.batch``
-(``BatchCodec``). Encode (parity rows of G — main.go:262) and reconstruct
-(inverted submatrix rows — main.go:77) are one primitive with a different
-matrix, a GF(2^8) or GF(2^16) product over a batch of same-shape objects:
+Port of ``noise_ec_tpu.parallel.batch`` (``BatchCodec``). Encode (parity
+rows of G — main.go:262) and reconstruct (inverted submatrix rows —
+main.go:77) are one primitive with a different matrix, a GF(2^8) or
+GF(2^16) product over a batch of same-shape objects:
 
 - the symbol entries (``matmul_batch``, ``encode_batch``,
   ``reconstruct_batch``) take host arrays ``(B, k, S)``. The reference
   folds the batch into one XLA mask product; here the batch rides the
   card's words path through one ``DeviceCodec.matmul_stripes_many``
   dispatch (the same kernels as the words entries, after a relayout into
-  staging). It is never computed on the host;
+  staging), which shards it over the mesh router when that is enabled
+  (parallel/mesh.py). It is never computed on the host;
 - the words entries (``encode_batch_words``, ``reconstruct_batch_words``)
   take int32 word tensors ``(B, k, TW)`` already on the codec's device and
   run ``DeviceCodec.matmul_words_batch``: K1, K5 or the pipeline for a
-  baked matrix, the panel or MXU kernels past it.
+  baked matrix, the panel or MXU kernels past it;
+- the mesh builders (``make_sharded_*``) run one product over a
+  :class:`~noise_ec_tpu_torch.parallel.mesh.Mesh`: ``batch_axis`` is data
+  parallelism over objects and ``row_axis`` tensor parallelism over the
+  matrix's rows. Each position computes its objects' row slice on its own
+  device and stream through the single-device path for its slice, and the
+  slices are assembled in order (the reference's tiled ``all_gather``;
+  across processes a ``torch.distributed`` all-gather over the group,
+  parallel/multihost.py). A position that repeats another along any other
+  axis computes nothing: its block is the same. What a builder returns is
+  whole on every process.
 
 The reference's ``kernel=`` argument becomes ``device=`` ("cuda" unless
-the caller asks for "cpu", where each kernel's plain version runs). The
-mesh entries (``make_sharded_*``) and the mesh router raise
-``NotImplementedError``: multi-device dispatch is ROADMAP queue 1 item 6.
+the caller asks for "cpu", where each kernel's plain version runs); a
+builder's devices are its mesh's.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from noise_ec_tpu_torch.gf.bitmatrix import expand_generator_bits
 from noise_ec_tpu_torch.gf.field import GF, GF256, GF65536
 from noise_ec_tpu_torch.matrix.generators import generator_matrix
 from noise_ec_tpu_torch.matrix.linalg import reconstruction_matrix
+from noise_ec_tpu_torch.ops.pack import (
+    pack_u16_bytesliced,
+    unpack_u16_bytesliced,
+)
+from noise_ec_tpu_torch.parallel.mesh import (  # noqa: F401 (re-exported)
+    Mesh,
+    join_stream,
+    launch_on,
+    mesh_router,
+)
 
 _FIELDS = {"gf256": GF256, "gf65536": GF65536}
 
@@ -39,13 +62,69 @@ _FIELDS = {"gf256": GF256, "gf65536": GF65536}
 # device (a stream's chunks share one).
 _PATTERNS = 64
 
-_MESH_TODO = ("multi-device dispatch is not ported yet (ROADMAP queue 1 "
-              "item 6: batch-axis sharding and the TP split over NCCL)")
+# make_sharded_matmul_words' route gate, as the reference has it
+# (noise_ec_tpu/parallel/batch.py:361-385 with that package's
+# _BAKED_XOR_BUDGET and _BAKED_MAX_ROWS): past either bound a GF(2^8)
+# matrix runs K8 per row slice, and a GF(2^16) one is refused. This is
+# the reference's choice for the mesh builder and differs from
+# DeviceCodec.route_for, which sends RS(200,56) to the panel route.
+_MESH_XOR_BUDGET = 60_000
+_MESH_MAX_ROWS = 96
 
 
-def mesh_router():
-    """The reference's mesh dispatch tier: not ported (``_MESH_TODO``)."""
-    raise NotImplementedError(_MESH_TODO)
+def _all_gather(out: torch.Tensor, x: torch.Tensor) -> None:
+    import torch.distributed as dist
+
+    gather = getattr(dist, "all_gather_single", None)
+    (gather or dist.all_gather_into_tensor)(out, x)
+
+
+def _as_words(x) -> torch.Tensor:
+    """(B, K, TW) words as an int32 tensor (a uint32 array is viewed)."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.from_numpy(np.ascontiguousarray(x).view(np.int32))
+
+
+def _assemble(mesh: Mesh, owners: dict, local: dict, shape: tuple,
+              Bb: int, Rb: int) -> torch.Tensor:
+    """The whole (B, rows, TW) product on ``mesh.home`` from the blocks
+    (ib, ir) -> (tensor, stream) this process computed. Where the mesh
+    spans processes, every rank contributes its blocks to one all-gather
+    over the group (padded to the most any rank owns), so every process
+    ends with every block."""
+    import torch.distributed as dist
+
+    home = mesh.home
+    full = torch.empty(shape, dtype=torch.int32, device=home)
+
+    def put(blk, x):
+        ib, ir = blk
+        full[ib * Bb:(ib + 1) * Bb, ir * Rb:(ir + 1) * Rb] = x.to(home)
+
+    if mesh.processes is None or not (dist.is_available()
+                                      and dist.is_initialized()):
+        for blk, (x, stream) in local.items():
+            put(blk, join_stream(x, stream))
+        return full
+    by_rank: dict[int, list] = {}
+    for blk, (pos, _) in sorted(owners.items()):
+        by_rank.setdefault(mesh.process_of(pos), []).append(blk)
+    world, rank = dist.get_world_size(), dist.get_rank()
+    n = max(len(v) for v in by_rank.values())
+    where = home if dist.get_backend() == "nccl" else torch.device("cpu")
+    mine = torch.zeros((n, Bb, Rb, shape[2]), dtype=torch.int32,
+                       device=where)
+    for j, blk in enumerate(by_rank.get(rank, [])):
+        x, stream = local[blk]
+        mine[j] = join_stream(x, stream).to(where)
+    gathered = torch.empty((world * n,) + tuple(mine.shape[1:]),
+                           dtype=torch.int32, device=where)
+    _all_gather(gathered, mine)
+    for r in range(world):
+        for j, blk in enumerate(by_rank.get(r, [])):
+            put(blk, gathered[r * n + j])
+    return full
 
 
 class BatchCodec:
@@ -64,6 +143,8 @@ class BatchCodec:
         self.field_name = field
         self.device = device
         self._dev = None  # the DeviceCodec, built at first use
+        # DeviceCodecs of the mesh builders' other devices, by device.
+        self._codecs: dict[str, object] = {}
         self._patterns: dict[tuple, tuple] = {}
         self.k = data_shards
         self.r = parity_shards
@@ -94,7 +175,11 @@ class BatchCodec:
 
     def matmul_batch(self, M: np.ndarray, batch) -> np.ndarray:
         """(R, k) GF matrix x (B, k, S) symbols -> (B, R, S), one batched
-        dispatch on the codec's device."""
+        dispatch on the codec's device. When the mesh dispatch tier is
+        active (parallel/mesh.py), the batch axis shards over its
+        "stripes" axis inside that dispatch (``matmul_stripes_many``
+        consults the router), so ``encode_batch`` and ``reconstruct_batch``
+        ride every device it spans."""
         M = np.ascontiguousarray(np.asarray(M, dtype=self.gf.dtype))
         batch = np.asarray(batch, dtype=self.gf.dtype)
         if batch.ndim != 3 or batch.shape[1] != M.shape[1]:
@@ -188,26 +273,207 @@ class BatchCodec:
         self._patterns[key] = hit
         return hit
 
-    # -- mesh entries -------------------------------------------------------
+    # -- mesh builders ------------------------------------------------------
 
-    def make_sharded_matmul(self, mesh, M, *, batch_axis: str = "batch",
-                            row_axis: Optional[str] = None):
-        raise NotImplementedError(_MESH_TODO)
+    def _codec_on(self, device: torch.device):
+        """The words-path ``DeviceCodec`` on ``device`` (this codec's own
+        where it is that device): plans are uploaded per device."""
+        key = str(device)
+        dev = self._codecs.get(key)
+        if dev is None:
+            from noise_ec_tpu_torch.ops.dispatch import DeviceCodec
 
-    def make_sharded_encoder(self, mesh, *, batch_axis: str = "batch",
-                             row_axis: Optional[str] = None):
-        raise NotImplementedError(_MESH_TODO)
+            if self._dev is not None and self._dev.device == device:
+                dev = self._dev
+            else:
+                dev = DeviceCodec(field=self.field_name, device=device)
+            self._codecs[key] = dev
+        return dev
 
-    def make_sharded_decode1(self, mesh, j: int, *,
+    def _sharded(self, mesh: Mesh, R: int, batch_axis: str,
+                 row_axis: Optional[str],
+                 product: Callable, units: int) -> Callable:
+        """``run((B, K, TW) words) -> (B, units * R, TW)`` int32 on
+        ``mesh.home``: block (ib, ir) — objects ``ib`` of the batch axis,
+        row slice ``ir`` of the row axis — is ``product(ir, device,
+        words)`` -> (B / nb, units * R / nr, TW), computed by the position
+        at index 0 along every other axis (module doc)."""
+        names = mesh.axis_names
+        for axis in (batch_axis, row_axis):
+            if axis is not None and axis not in names:
+                raise ValueError(f"mesh has no axis {axis!r} ({names})")
+        nb = mesh.shape[batch_axis]
+        nr = 1 if row_axis is None else mesh.shape[row_axis]
+        if R % nr:
+            raise ValueError(
+                f"matrix rows {R} not divisible by mesh axis "
+                f"{row_axis!r} size {nr}"
+            )
+        bi = names.index(batch_axis)
+        ri = None if row_axis is None else names.index(row_axis)
+        owners: dict[tuple, tuple] = {}
+        for flat, pos in enumerate(np.ndindex(mesh.devices.shape)):
+            if any(p for a, p in enumerate(pos) if a not in (bi, ri)):
+                continue
+            owners[(pos[bi], 0 if ri is None else pos[ri])] = (pos, flat)
+        Rb = units * (R // nr)
+
+        def run(words) -> torch.Tensor:
+            words = _as_words(words)
+            B, _, TW = words.shape
+            if B % nb:
+                raise ValueError(f"batch {B} not divisible by mesh axis "
+                                 f"{batch_axis!r} size {nb}")
+            Bb = B // nb
+            local = {}
+            for (ib, ir), (pos, flat) in owners.items():
+                if not mesh.is_local(pos):
+                    continue
+                stream = mesh.stream(flat)
+                out = launch_on(
+                    mesh.devices[pos], stream,
+                    lambda w, ir=ir, d=mesh.devices[pos]: product(
+                        ir, d, w.contiguous()),
+                    words[ib * Bb:(ib + 1) * Bb])
+                local[(ib, ir)] = (out, stream)
+            return _assemble(mesh, owners, local, (B, units * R, TW), Bb, Rb)
+
+        return run
+
+    @staticmethod
+    def _row_slices(M: np.ndarray, mesh: Mesh,
+                    row_axis: Optional[str]) -> list:
+        nr = 1 if row_axis is None else mesh.shape.get(row_axis, 1)
+        Rl = M.shape[0] // nr
+        return [M[i * Rl:(i + 1) * Rl] for i in range(nr)]
+
+    def make_sharded_matmul(self, mesh: Mesh, M: np.ndarray, *,
+                            batch_axis: str = "batch",
+                            row_axis: Optional[str] = None) -> Callable:
+        """(B, k, S) symbols -> (B, R, S) host array over ``mesh``.
+
+        Objects are sharded over ``batch_axis``; with ``row_axis`` the
+        output rows of ``M`` are too, each position computing its row
+        slice, and the slices are assembled in order (module doc). The
+        symbols are staged as byte rows (GF(2^16) byte-sliced), as
+        ``DeviceCodec.matmul_stripes`` stages them."""
+        M = np.ascontiguousarray(np.asarray(M, dtype=self.gf.dtype))
+        s = self.gf.degree // 8
+        slices = self._row_slices(M, mesh, row_axis)
+        run = self._sharded(
+            mesh, M.shape[0], batch_axis, row_axis,
+            lambda ir, device, w: self._codec_on(device)._byte_rows(
+                slices[ir], w, None),
+            s)
+
+        def fn(batch) -> np.ndarray:
+            if isinstance(batch, torch.Tensor):
+                batch = batch.cpu().numpy()
+            sym = np.asarray(batch, dtype=self.gf.dtype)
+            if sym.ndim != 3 or sym.shape[1] != M.shape[1]:
+                raise ValueError(f"expected (B, {M.shape[1]}, S) symbols, "
+                                 f"got {sym.shape}")
+            B, k, S = sym.shape
+            host = np.zeros((B, s * k, 4 * -(-S // 4)), dtype=np.uint8)
+            for b in range(B):
+                if s == 2:
+                    pack_u16_bytesliced(sym[b], out=host[b])
+                else:
+                    host[b, :, :S] = sym[b]
+            out = run(torch.from_numpy(host.view(np.int32)))
+            res = out.cpu().numpy().view(np.uint8)
+            if s == 2:
+                return np.stack([unpack_u16_bytesliced(res[b, :, :S])
+                                 for b in range(B)])
+            return np.ascontiguousarray(res[:, :, :S])
+
+        return fn
+
+    def make_sharded_encoder(self, mesh: Mesh, *, batch_axis: str = "batch",
+                             row_axis: Optional[str] = None) -> Callable:
+        """Batched parity encode over the mesh: (B, k, S) -> (B, r, S)."""
+        return self.make_sharded_matmul(
+            mesh, self.parity_matrix, batch_axis=batch_axis,
+            row_axis=row_axis)
+
+    def make_sharded_decode1(self, mesh: Mesh, j: int, *,
                              batch_axis: str = "batch",
-                             row_axis: Optional[str] = None):
-        raise NotImplementedError(_MESH_TODO)
+                             row_axis: Optional[str] = None) -> Callable:
+        """Batched single-corrupt-row decode step over the mesh.
 
-    def make_sharded_matmul_words(self, mesh, M, *,
+        (B, n, S) received codewords (all n shares, systematic order) ->
+        (B, n - k, S): row 0 is received row ``j`` with the single-support
+        correction applied, rows 1.. the rank-1 consistency checks, zero
+        exactly where the hypothesis "only row j is in error" holds (the
+        decode1 fold, ``ops.dispatch.decode1_fold_matrix``)."""
+        from noise_ec_tpu_torch.ops.dispatch import decode1_fold_matrix
+
+        D = decode1_fold_matrix(self.gf, self.parity_matrix, j)
+        return self.make_sharded_matmul(
+            mesh, D, batch_axis=batch_axis, row_axis=row_axis)
+
+    def make_sharded_matmul_words(self, mesh: Mesh, M: np.ndarray, *,
                                   batch_axis: str = "batch",
-                                  row_axis: Optional[str] = None):
-        raise NotImplementedError(_MESH_TODO)
+                                  row_axis: Optional[str] = None
+                                  ) -> Callable:
+        """(B, k, TW) words (int32 tensor, or a uint32 / int32 array) ->
+        (B, R, TW) int32 over ``mesh``, whole on every process.
 
-    def make_sharded_encoder_words(self, mesh, *, batch_axis: str = "batch",
-                                   row_axis: Optional[str] = None):
-        raise NotImplementedError(_MESH_TODO)
+        Words are the shard bytes (4 GF(2^8) or 2 interleaved GF(2^16)
+        symbols a word). Each position runs its row slice through the
+        single-device words path (GF(2^16) at 16 planes a symbol), except
+        past the reference's route gate (``_MESH_XOR_BUDGET``,
+        ``_MESH_MAX_ROWS`` over the whole matrix): a near-limit GF(2^8)
+        matrix such as RS(200,56) runs K8 per row slice, and a GF(2^16)
+        one raises ``NotImplementedError``."""
+        from noise_ec_tpu_torch.ops.mxu import (
+            MXU_TILE_WORDS,
+            build_mxu_tiles,
+            mxu_encode_tiles,
+        )
+
+        M = np.ascontiguousarray(np.asarray(M, dtype=self.gf.dtype))
+        m = self.gf.degree
+        bits = expand_generator_bits(self.gf, M)
+        cost = int(np.count_nonzero(bits)) - bits.shape[0]
+        rows_eff = max(M.shape) * (2 if m == 16 else 1)
+        mxu_route = cost > _MESH_XOR_BUDGET or rows_eff > _MESH_MAX_ROWS
+        if mxu_route and m != 8:
+            raise NotImplementedError(
+                "near-field-limit GF(2^16) has no mesh words kernel; "
+                "use the stripes path (make_sharded_matmul) or GF(2^8)"
+            )
+        slices = self._row_slices(M, mesh, row_axis)
+        if mxu_route:
+            tiles: dict[tuple, object] = {}
+
+            def product(ir, device, w):
+                key = (ir, str(device))
+                op = tiles.get(key)
+                if op is None:
+                    Ml = slices[ir]
+                    m2 = expand_generator_bits(self.gf, Ml).astype(np.int8)
+                    op = tiles[key] = build_mxu_tiles(
+                        torch.from_numpy(m2), *Ml.shape).to(device)
+                TW = w.shape[-1]
+                TWp = -(-TW // MXU_TILE_WORDS) * MXU_TILE_WORDS
+                if TWp != TW:
+                    w = F.pad(w, (0, TWp - TW))
+                return mxu_encode_tiles(op, w.contiguous())[..., :TW]
+        elif m == 8:
+            def product(ir, device, w):
+                return self._codec_on(device)._byte_rows(slices[ir], w, None)
+        else:
+            def product(ir, device, w):
+                return self._codec_on(device)._words16(slices[ir], w, None)
+        return self._sharded(mesh, M.shape[0], batch_axis, row_axis,
+                             product, 1)
+
+    def make_sharded_encoder_words(self, mesh: Mesh, *,
+                                   batch_axis: str = "batch",
+                                   row_axis: Optional[str] = None
+                                   ) -> Callable:
+        """Batched parity encode on words: (B, k, TW) -> (B, r, TW)."""
+        return self.make_sharded_matmul_words(
+            mesh, self.parity_matrix, batch_axis=batch_axis,
+            row_axis=row_axis)

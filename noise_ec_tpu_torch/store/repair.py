@@ -132,12 +132,14 @@ class RepairEngine:
         self.network = network
         self.batch_min = batch_min
         if max_batch is None:
-            # One device: a drain's group dispatch rides rs.matmul_many
-            # on the store's card. The reference widens the drain with
-            # its mesh (N chips, up to 512); the port has no multi-card
-            # dispatch yet (parallel/batch.py mesh_router raises), so the
-            # width stays the one-device 64.
-            max_batch = 64
+            # A drain's group dispatch rides rs.matmul_many through the
+            # mesh dispatch tier (parallel/mesh.py): with N devices one
+            # batched reconstruct shards N ways, so a repair storm may
+            # drain N x wider per dispatch at the same load a device.
+            from noise_ec_tpu_torch.parallel.mesh import mesh_router
+
+            router = mesh_router()
+            max_batch = min(64 * router.n_pow2, 512) if router.enabled else 64
         self.max_batch = max_batch
         self.linger_seconds = linger_seconds
         self.fetch_interval_seconds = fetch_interval_seconds

@@ -309,6 +309,9 @@ _HOST_MODULES = [("resilience", "chaos"), ("obs", "perfetto"),
                  ("fleet", "__init__"), ("fleet", "profile"),
                  ("fleet", "runner"), ("fleet", "score")]
 
+# The mesh tier and the multi-process mesh: both checks reach these too.
+_MESH_MODULES = [("parallel", "mesh"), ("parallel", "multihost")]
+
 
 def test_no_jax_or_reference_imports_in_the_port_source():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -321,6 +324,8 @@ def test_no_jax_or_reference_imports_in_the_port_source():
     assert {PORT / group / f"{name}.py" for group, name in _STORAGE_MODULES} \
         <= set(files)
     assert {PORT / group / f"{name}.py" for group, name in _HOST_MODULES} \
+        <= set(files)
+    assert {PORT / group / f"{name}.py" for group, name in _MESH_MODULES} \
         <= set(files)
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -353,6 +358,8 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
     assert {f"noise_ec_tpu_torch.{group}" + ("" if name == "__init__"
                                              else f".{name}")
             for group, name in _HOST_MODULES} <= set(mods)
+    assert {f"noise_ec_tpu_torch.{group}.{name}"
+            for group, name in _MESH_MODULES} <= set(mods)
     code = (
         "import sys, importlib\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

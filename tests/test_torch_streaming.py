@@ -23,6 +23,7 @@ from noise_ec_tpu_torch.parallel import (
     decode_stream,
 )
 from noise_ec_tpu_torch.parallel.batch import mesh_router
+from noise_ec_tpu_torch.parallel.mesh import MeshRouter, make_mesh
 
 # One erasure pattern per geometry, so each recovery matrix is planned
 # once for the module (RS(50,20)'s at the code's limit: 10 data and 10
@@ -190,16 +191,31 @@ def test_batch_reconstruct_at_the_rs_50_20_limit_matches_reference(rng):
         bc.reconstruct_batch(full[:, :k - 1], list(range(k - 1)))
 
 
-def test_mesh_entries_are_not_ported():
+def test_mesh_entries_build_and_run():
+    """Every mesh entry builds and runs on a ``[cpu] * 2`` batch axis,
+    equal to the single-device batch codec; the process router is there,
+    disabled on the CPU."""
     bc = BatchCodec(4, 2, device="cpu")
-    for call in (lambda: bc.make_sharded_matmul(None, bc.parity_matrix),
-                 lambda: bc.make_sharded_encoder(None),
-                 lambda: bc.make_sharded_decode1(None, 0),
-                 lambda: bc.make_sharded_matmul_words(None, bc.parity_matrix),
-                 lambda: bc.make_sharded_encoder_words(None),
-                 mesh_router):
-        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-            call()
+    mesh = make_mesh(("batch",), devices=[torch.device("cpu")] * 2)
+    rng = np.random.default_rng(11)
+    data = rng.integers(0, 256, size=(2, 4, 64)).astype(np.uint8)
+    full = bc.encode_batch(data)
+    words = torch.from_numpy(data.view(np.int32))
+    for fn, x, want in (
+            (bc.make_sharded_matmul(mesh, bc.parity_matrix), data,
+             full[:, 4:]),
+            (bc.make_sharded_encoder(mesh), data, full[:, 4:]),
+            (bc.make_sharded_decode1(mesh, 0), full, np.concatenate(
+                [data[:, :1], np.zeros((2, 1, 64), np.uint8)], axis=1)),
+            (bc.make_sharded_matmul_words(mesh, bc.parity_matrix), words,
+             full[:, 4:]),
+            (bc.make_sharded_encoder_words(mesh), words, full[:, 4:])):
+        got = fn(x)
+        if isinstance(got, torch.Tensor):
+            got = got.numpy().view(np.uint8)
+        np.testing.assert_array_equal(got, want)
+    router = mesh_router()
+    assert isinstance(router, MeshRouter) and not router.enabled
 
 
 def test_streaming_defaults_to_the_card(monkeypatch):
