@@ -1,6 +1,6 @@
 """Device telemetry: dispatch latency, compile tracking, roofline, memory.
 
-Port of ``noise_ec_tpu.obs.device`` for the CUDA card. Three surfaces:
+Port of ``noise_ec_tpu.obs.device`` for the CUDA card. Its surfaces:
 
 - **Dispatch latency with a compile/execute split** —
   :func:`device_op` wraps every public ``DeviceCodec`` entry. The codec
@@ -16,6 +16,11 @@ Port of ``noise_ec_tpu.obs.device`` for the CUDA card. Three surfaces:
   host arrays (``matmul_stripes``) times the device round trip, while the
   words entries return before the card finishes, so their "execute" time
   is the submit time. No synchronise is added to time them.
+- **Words entries' device time** — during a ``torch.profiler`` capture
+  (``GET /xprof``), :func:`entry_scope` roots each ``BatchCodec`` words
+  entry: its span (obs/trace.py) and, on a card, a pair of CUDA timing
+  events whose interval lands in ``noise_ec_batch_device_seconds{entry}``
+  once a later entry finds it done (:func:`resolve_entry_events`).
 - **Roofline** — :func:`analyze_program` takes the plan's own counts
   (no compiler cost analysis exists for a hand-written kernel): bytes
   moved ``4 x (input rows + output rows) x words`` and operations ``raw
@@ -47,21 +52,25 @@ from __future__ import annotations
 import logging
 import threading
 import time
+from collections import deque
 from typing import Optional
 
 from noise_ec_tpu_torch.obs.registry import Registry, default_registry
+from noise_ec_tpu_torch.obs.trace import _NOOP, default_tracer, profiling
 
 __all__ = [
     "DeviceOpTimer",
     "analyze_program",
     "achieved_gbps",
     "device_op",
+    "entry_scope",
     "hbm_snapshot",
     "install_hbm_gauges",
     "maybe_analyze_program",
     "peak_hbm_gbps",
     "record_tile_dispatch",
     "reset_dispatch_tracking",
+    "resolve_entry_events",
     "roofline_summary",
     "set_analysis_interval",
     "set_peak_hbm_gbps",
@@ -394,6 +403,111 @@ def analyze_program(entry: str, xor_terms: int, in_rows: int,
         log.debug("program analysis failed for %s: %s", entry, exc)
         return None
     return {"flops": flops, "bytes": nbytes, "intensity": intensity}
+
+
+# ------------------------------------------- words entries' device time
+#
+# While a torch.profiler capture records, each words entry on a CUDA
+# device (parallel/batch.py) records a timing event on the current stream
+# as it starts and another as it ends. The pairs wait in a bounded deque;
+# each later entry call moves those whose end event is done into
+# noise_ec_batch_device_seconds{entry}, oldest first, without blocking.
+# Nothing synchronises. On the CPU nothing is recorded.
+
+_ENTRY_PENDING = 1024
+_entry_lock = threading.Lock()
+_entry_pending: deque = deque()
+# Resolved events by device index, recorded again (an event stays on the
+# device it was first recorded on).
+_entry_spare: dict[int, list] = {}
+_entry_children: dict[str, object] = {}
+
+
+def _timing_event(index: int):
+    try:
+        return _entry_spare.get(index, []).pop()
+    except IndexError:
+        pass
+    import torch
+
+    return torch.cuda.Event(enable_timing=True)
+
+
+class _EntryScope:
+    """The root of one words entry during a capture: its span and, on a
+    CUDA device, its pair of timing events. Pending pairs resolve inside
+    the span, so the host time they take is the entry's."""
+
+    __slots__ = ("span", "entry", "device", "stream", "start")
+
+    def __init__(self, span, entry: str, device):
+        self.span = span
+        self.entry = entry
+        self.device = device
+        self.start = None
+
+    def __enter__(self) -> "_EntryScope":
+        self.span.__enter__()
+        if _entry_pending:
+            resolve_entry_events()
+        if self.device.type == "cuda":
+            import torch
+
+            self.stream = torch.cuda.current_stream(self.device)
+            self.start = _timing_event(self.device.index)
+            self.start.record(self.stream)
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        if self.start is not None and exc is None:
+            end = _timing_event(self.device.index)
+            end.record(self.stream)
+            with _entry_lock:
+                if len(_entry_pending) >= _ENTRY_PENDING:
+                    _entry_pending.popleft()
+                _entry_pending.append((self.entry, self.device.index,
+                                       self.start, end))
+        return self.span.__exit__(exc_type, exc, tb)
+
+
+def entry_scope(span_name: str, entry: str, device):
+    """``with entry_scope("batch.encode_words", "encode_batch_words",
+    words.device):`` around one words entry. While a ``torch.profiler``
+    capture records, opens the entry's root span (obs/trace.py), moves
+    the finished pending pairs into the histogram
+    (:func:`resolve_entry_events`) and, on a CUDA device, records the
+    entry's start event; else resolves what is pending and returns the
+    shared no-op."""
+    if not profiling():
+        if _entry_pending:
+            resolve_entry_events()
+        return _NOOP
+    return _EntryScope(default_tracer().device_span(span_name, root=True),
+                       entry, device)
+
+
+def resolve_entry_events() -> None:
+    """Observe the device seconds of every pending entry whose end event
+    is done, oldest first, up to the first that is not; never waits (a
+    call that finds another resolving returns)."""
+    if not _entry_lock.acquire(blocking=False):
+        return
+    try:
+        while _entry_pending:
+            entry, index, start, end = _entry_pending[0]
+            if not end.query():
+                return
+            _entry_pending.popleft()
+            child = _entry_children.get(entry)
+            if child is None:
+                child = _entry_children[entry] = default_registry().histogram(
+                    "noise_ec_batch_device_seconds").labels(entry=entry)
+            child.observe(start.elapsed_time(end) * 1e-3)
+            spare = _entry_spare.setdefault(index, [])
+            if len(spare) < 64:
+                spare.extend((start, end))
+    finally:
+        _entry_lock.release()
 
 
 # ------------------------------------------------------------------- HBM

@@ -955,7 +955,8 @@ METRICS: dict[str, tuple[str, str, tuple[str, ...]]] = {
 # Families only the port records. Its codec breaker refuses a tripped
 # product (ops/dispatch.py) where the reference's serves it from the host
 # and counts it in noise_ec_codec_fallback_total, which the port declares
-# above as a copy and never records.
+# above as a copy and never records. The batch families time and count
+# the words entries from inside (parallel/batch.py, obs/device.py).
 PORT_METRICS: dict[str, tuple[str, str, tuple[str, ...]]] = {
     "noise_ec_codec_refused_total": (
         "counter",
@@ -971,6 +972,21 @@ PORT_METRICS: dict[str, tuple[str, str, tuple[str, ...]]] = {
         "the last ops.reset_launch_counts (read at collect time; exposed "
         "once a codec on a CUDA device exists)",
         ("kernel",),
+    ),
+    "noise_ec_batch_pattern_misses_total": (
+        "counter",
+        "Erasure patterns a BatchCodec planned (recovery matrix and row "
+        "order) because its pattern cache did not hold them, labeled by "
+        "entry (reconstruct_batch, reconstruct_batch_words)",
+        ("entry",),
+    ),
+    "noise_ec_batch_device_seconds": (
+        "histogram",
+        "Device seconds of one BatchCodec words entry between CUDA timing "
+        "events on its stream at its start and end, labeled by entry "
+        "(encode_batch_words, reconstruct_batch_words); recorded only "
+        "while a torch.profiler capture runs (GET /xprof)",
+        ("entry",),
     ),
 }
 METRICS.update(PORT_METRICS)

@@ -28,6 +28,8 @@ node's CLI attaches the process log.
   and, on a card, CUDA activity) of the next N seconds into the
   configured ``xprof_dir`` (404 until the CLI ``-xprof-dir`` flag or
   constructor wires a directory; 409 while a capture is already running).
+  What a capture adds to the trace and to ``/metrics`` is in the route's
+  docstring (:meth:`StatsServer._route_xprof`).
 
 Dispatch is a **registration table**, not an if/elif chain: every
 endpoint above is a route registered through :meth:`StatsServer.mount`,
@@ -332,6 +334,21 @@ class StatsServer:
                 self._profile(seconds).encode())
 
     def _route_xprof(self, req: dict) -> tuple:
+        """``GET /xprof?seconds=N`` (module doc): starts one capture of N
+        seconds (5 by default, 0.1 to 300).
+
+        While it runs, every tracer span is also a range of the trace, on
+        the clock of the kernels it launches (obs/trace.py): the node's,
+        and the words entries' ``batch.encode_words`` /
+        ``batch.reconstruct_words`` with ``batch.pattern``,
+        ``batch.select``, ``codec.plan``, ``codec.gate``, ``codec.launch``
+        and ``batch.cat`` inside. Each words entry on a card also records
+        its device seconds, from CUDA events, into
+        ``noise_ec_batch_device_seconds{entry}`` on ``/metrics``
+        (obs/device.py ``entry_scope``). Outside a capture the entries
+        open no span and record no event;
+        ``noise_ec_batch_pattern_misses_total{entry}`` counts the pattern
+        cache's misses either way."""
         if not self.xprof_dir:
             return (404, "text/plain",
                     b"no xprof dir configured (-xprof-dir)\n")

@@ -1,8 +1,10 @@
 """In-process span tracer: per-stage timings keyed by message identity.
 
-Port of ``noise_ec_tpu.obs.trace``, whole; the port's node opens its
-spans (host/plugin.py, host/transport.py) and the port's event log stamps
-each record from :func:`default_tracer` (obs/events.py).
+Port of ``noise_ec_tpu.obs.trace``, whole, plus spans on the device
+trace's clock (below); the port's node opens its spans (host/plugin.py,
+host/transport.py), the words entries theirs (parallel/batch.py,
+ops/dispatch.py), and the port's event log stamps each record from
+:func:`default_tracer` (obs/events.py).
 
 Dapper-style attribution without the distributed machinery: a *span* is
 one timed stage (``span("decode", key=...)``), a *trace* is every span
@@ -36,6 +38,37 @@ Overhead per span: two clock reads, one deque append under a lock, one
 histogram observe — per *message stage*, not per kernel call, so the
 encode hot loop (``record_kernel``) keeps its two counter adds.
 
+Spans on the device trace's clock: while a ``torch.profiler`` capture
+records (``GET /xprof?seconds=N`` on the stats server, or any
+``torch.profiler.profile`` in the process), every span also opens a
+profiler range of its own name (PyTorch's fast ``record_function``),
+which the capture's Chrome trace holds as a host event beside the PyTorch
+ops, runtime calls and kernels it covers. The node's spans do this, and so does the codec path, which opens
+its spans through :meth:`Tracer.device_span`: a live span only while a
+capture records, else the shared no-op at the cost of one flag read, so a
+words entry outside a capture opens no span and writes nothing to the
+ring. The codec path's spans, nested as listed:
+
+- ``batch.encode_words``, ``batch.reconstruct_words`` — one words entry
+  of ``parallel/batch.py`` ``BatchCodec``, the root;
+- ``batch.pattern`` — the erasure-pattern lookup, with a miss's inversion
+  and index uploads;
+- ``batch.select`` — the ``index_select`` of the basis rows;
+- ``codec.plan`` — ``DeviceCodec.matmul_words_batch``'s route and
+  plan-cache lookups before the gate, and, nested in ``codec.launch``,
+  the planning of a matrix the plan cache missed;
+- ``codec.gate`` — the ``DeviceGate`` acquire;
+- ``codec.launch`` — the kernel launch (``_byte_rows`` / ``_words16``);
+- ``batch.cat`` — the ``torch.cat`` of the answer and its ``order``
+  ``index_select``.
+
+Two families go with them (obs/registry.py ``PORT_METRICS``):
+``noise_ec_batch_pattern_misses_total{entry}`` counts every pattern a
+``BatchCodec`` planned, capture or not; ``noise_ec_batch_device_seconds
+{entry}`` holds each words entry's device seconds from CUDA timing events
+(obs/device.py :func:`~noise_ec_tpu_torch.obs.device.entry_scope`), and
+records only during a capture.
+
 Request-scoped tracing (docs/observability.md "Request tracing"): a
 user-facing op opens :func:`request`, which mints a ``req-<16 hex>``
 trace id, roots a ``request`` span, and — unlike signature-keyed
@@ -57,6 +90,7 @@ propagation headers and frame attrs.
 
 from __future__ import annotations
 
+import sys
 import threading
 import time
 from collections import deque
@@ -73,7 +107,9 @@ __all__ = [
     "clock_anchor",
     "current_trace_id",
     "default_tracer",
+    "device_span",
     "node_attrs",
+    "profiling",
     "request",
     "span",
     "trace_key",
@@ -108,6 +144,40 @@ def clock_anchor() -> dict:
     return {"wall": _WALL0, "perf": _PERF0, "now": time.time()}
 
 
+# PyTorch's profiler module, once loaded: its ``_is_profiler_enabled`` is
+# set while a capture records. Looked up, never imported: where PyTorch
+# is not loaded nothing can capture.
+_autograd_profiler = None
+# PyTorch's fast range (``record_function``'s C++ variant), bound at the
+# first range.
+_fast_range = None
+
+
+def profiling() -> bool:
+    """True while a ``torch.profiler`` capture records (one flag read)."""
+    global _autograd_profiler
+    mod = _autograd_profiler
+    if mod is None:
+        mod = sys.modules.get("torch.autograd.profiler")
+        if mod is None:
+            return False
+        _autograd_profiler = mod
+    return mod._is_profiler_enabled
+
+
+def _range_enter(name: str):
+    """Open a profiler range named ``name``: PyTorch's fast variant of
+    ``record_function``, ~1 µs where the Python one costs ~9."""
+    global _fast_range
+    if _fast_range is None:
+        import torch
+
+        _fast_range = torch._C._profiler._RecordFunctionFast
+    rng = _fast_range(name)
+    rng.__enter__()
+    return rng
+
+
 class Span:
     """One live (then finished) stage timing. Mutable until exit.
 
@@ -117,7 +187,7 @@ class Span:
 
     __slots__ = (
         "name", "key", "attrs", "parent", "start", "end",
-        "trace_id", "error", "seq", "_tracer",
+        "trace_id", "error", "seq", "_tracer", "_range",
     )
 
     def __init__(self, tracer: "Tracer", name: str, key: Optional[str],
@@ -132,8 +202,13 @@ class Span:
         self.trace_id: Optional[str] = None
         self.error: Optional[str] = None
         self.seq = 0
+        self._range = None
 
     def __enter__(self) -> "Span":
+        # The profiler range, where a capture records, also covers the
+        # span's own bookkeeping: that host time is the span's too.
+        if profiling():
+            self._range = _range_enter(self.name)
         stack = self._tracer._stack()
         if stack:
             self.parent = stack[-1]
@@ -150,6 +225,9 @@ class Span:
         self.trace_id = self._resolve_trace_id(tracer)
         tracer._land(self)
         tracer._record_stage(self)
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+            self._range = None
         return False  # propagate any exception
 
     def set_key(self, key: str) -> None:
@@ -459,6 +537,18 @@ class Tracer:
             return _NOOP
         return Span(self, name, key, attrs)
 
+    def device_span(self, name: str, root: bool = False):
+        """A span of the codec path (module doc): a live :class:`Span`
+        while a ``torch.profiler`` capture records, else the shared
+        no-op. A ``root`` span under no keyed span takes a fresh
+        anonymous key, so that the call's spans share one trace id."""
+        if not (profiling() and self.enabled):
+            return _NOOP
+        sp = Span(self, name, None, {})
+        if root and all(s.key is None for s in self._stack()):
+            sp.key = f"anon-{self._next_anon()}"
+        return sp
+
     # ------------------------------------------- request-scoped tracing
 
     def request(self, op: str, trace_id: Optional[str] = None, **attrs):
@@ -669,6 +759,12 @@ def default_tracer() -> Tracer:
 def span(name: str, key: Optional[str] = None, **attrs):
     """``default_tracer().span(...)`` — the call sites' one-liner."""
     return _default.span(name, key, **attrs)
+
+
+def device_span(name: str):
+    """``default_tracer().device_span(name)`` — the codec path's
+    one-liner."""
+    return _default.device_span(name)
 
 
 def request(op: str, trace_id: Optional[str] = None, **attrs):

@@ -104,6 +104,7 @@ from noise_ec_tpu_torch.obs.device import device_op, maybe_analyze_program
 from noise_ec_tpu_torch.obs.events import event
 from noise_ec_tpu_torch.obs.profiling import record_kernel
 from noise_ec_tpu_torch.obs.registry import default_registry
+from noise_ec_tpu_torch.obs.trace import device_span
 from noise_ec_tpu_torch.ops._build import (
     KernelBuildError,
     KernelLaunchError,
@@ -541,7 +542,8 @@ class DeviceGate:
         return lane, ticket
 
     def __enter__(self) -> "DeviceGate":
-        self.acquire()
+        with device_span("codec.gate"):
+            self.acquire()
         return self
 
     def __exit__(self, exc_type, exc, tb) -> bool:
@@ -883,34 +885,40 @@ class DeviceCodec:
         Neither takes a tier."""
         if tier not in _TIERS:
             raise ValueError(f"unknown tier {tier!r}")
+        M = np.ascontiguousarray(np.asarray(M, dtype=self.gf.dtype))
+        key = (self._key(M), tier)
+        hit = self._plan_cache.get(key)
+        if hit is not None:
+            return hit  # planned before, so ``tier`` suited its route
+        with device_span("codec.plan"):
+            return self._plan(M, tier, key)
+
+    def _plan(self, M: np.ndarray, tier: Optional[str], key: tuple) -> tuple:
+        """Plan ``M`` on a miss in the plan cache (:meth:`plan_for`)."""
         route = self.route_for(M)
         if route != "baked" and tier is not None:
             raise ValueError(
                 f"tier {tier!r} forces a baked-route kernel; this matrix "
                 f"routes {route!r}"
             )
-        M = np.ascontiguousarray(np.asarray(M, dtype=self.gf.dtype))
-        key = (self._key(M), tier)
-        hit = self._plan_cache.get(key)
-        if hit is None:
-            if route == "mxu":
-                bits = torch.from_numpy(self._bits_for(M).view(np.int8))
-                hit = ("mxu", None, build_mxu_tiles(
-                    bits, self.sym_bytes * M.shape[0],
-                    self.sym_bytes * M.shape[1]), 1)
+        if route == "mxu":
+            bits = torch.from_numpy(self._bits_for(M).view(np.int8))
+            hit = ("mxu", None, build_mxu_tiles(
+                bits, self.sym_bytes * M.shape[0],
+                self.sym_bytes * M.shape[1]), 1)
+        else:
+            bits_rows = self.bits_rows_for(M)
+            C = 8 * self.sym_bytes * M.shape[1]
+            if route == "panel":
+                threads, prog, G = panel_plan(bits_rows, C)
+                hit = ("panel", threads, prog, G)
             else:
-                bits_rows = self.bits_rows_for(M)
-                C = 8 * self.sym_bytes * M.shape[1]
-                if route == "panel":
-                    threads, prog, G = panel_plan(bits_rows, C)
-                    hit = ("panel", threads, prog, G)
-                else:
-                    hit = self._baked_plan(bits_rows, C, tier,
-                                           8 * self.sym_bytes)
-            hit = hit[:2] + (hit[2].to(self.device), hit[3])
-            if len(self._plan_cache) > 1024:
-                self._plan_cache.clear()
-            self._plan_cache[key] = hit
+                hit = self._baked_plan(bits_rows, C, tier,
+                                       8 * self.sym_bytes)
+        hit = hit[:2] + (hit[2].to(self.device), hit[3])
+        if len(self._plan_cache) > 1024:
+            self._plan_cache.clear()
+        self._plan_cache[key] = hit
         return hit
 
     @staticmethod
@@ -1002,9 +1010,11 @@ class DeviceCodec:
         written into it.
 
         Returns once the work is queued on the card: the ``device_op``
-        time of this entry is the submit time. A product with no rows or
-        no width returns its zeros and launches nothing, outside the gate
-        (as :meth:`_stripes_entry`)."""
+        time of this entry is the submit time. During a ``torch.profiler``
+        capture the call opens the spans ``codec.plan`` (the route and
+        plan lookups), ``codec.gate`` and ``codec.launch`` (obs/trace.py).
+        A product with no rows or no width returns its zeros and launches
+        nothing, outside the gate (as :meth:`_stripes_entry`)."""
         M = np.asarray(M)
         self._check_words(words, M.shape[1])
         if M.size == 0 or words.shape[2] == 0:
@@ -1013,18 +1023,20 @@ class DeviceCodec:
         if donate:
             self._pool.donate(words)
         nbytes = 4 * words.numel()
-        route = self._admit("matmul_words", M, tier, nbytes)
+        with device_span("codec.plan"):
+            route = self._admit("matmul_words", M, tier, nbytes)
         with device_gate(), device_op("matmul_words", route, nbytes,
                                       synced=False) as dt:
             B, k, TW = words.shape
-            router = self._mesh(B, M) if self.sym_bytes == 1 else None
-            if router is not None:
-                out = router.words_product(self, M, words, tier=tier)
-                out = out.to_tensor(self.device)
-            elif self.sym_bytes == 1:
-                out = self._byte_rows(M, words, tier)
-            else:
-                out = self._words16(M, words, tier)
+            with device_span("codec.launch"):
+                router = self._mesh(B, M) if self.sym_bytes == 1 else None
+                if router is not None:
+                    out = router.words_product(self, M, words, tier=tier)
+                    out = out.to_tensor(self.device)
+                elif self.sym_bytes == 1:
+                    out = self._byte_rows(M, words, tier)
+                else:
+                    out = self._words16(M, words, tier)
             self._label_tile(dt, M, tier, sharded=router is not None)
             s = self.sym_bytes
             self._analyze(dt, M, B * s * k, B * s * M.shape[0], TW // s)

@@ -45,6 +45,9 @@ from noise_ec_tpu_torch.gf.bitmatrix import expand_generator_bits
 from noise_ec_tpu_torch.gf.field import GF, GF256, GF65536
 from noise_ec_tpu_torch.matrix.generators import generator_matrix
 from noise_ec_tpu_torch.matrix.linalg import reconstruction_matrix
+from noise_ec_tpu_torch.obs.device import entry_scope
+from noise_ec_tpu_torch.obs.registry import default_registry
+from noise_ec_tpu_torch.obs.trace import device_span
 from noise_ec_tpu_torch.ops.pack import (
     pack_u16_bytesliced,
     unpack_u16_bytesliced,
@@ -218,24 +221,36 @@ class BatchCodec:
 
     def encode_batch_words(self, words: torch.Tensor) -> torch.Tensor:
         """(B, k, TW) int32 words on the codec's device -> (B, n, TW) full
-        codewords as words (the data rows, then the parity rows)."""
-        parity = self.device_codec().matmul_words_batch(
-            self.parity_matrix, words)
-        return torch.cat([words, parity], dim=1)
+        codewords as words (the data rows, then the parity rows). During a
+        ``torch.profiler`` capture the call opens its spans and times its
+        device work (obs/trace.py)."""
+        with entry_scope("batch.encode_words", "encode_batch_words",
+                         words.device):
+            parity = self.device_codec().matmul_words_batch(
+                self.parity_matrix, words)
+            with device_span("batch.cat"):
+                return torch.cat([words, parity], dim=1)
 
     def reconstruct_batch_words(self, words_present: torch.Tensor,
                                 present: list[int]) -> torch.Tensor:
         """Words-path batch rebuild: (B, len(present), TW) int32 words on
         the codec's device -> (B, n, TW), with :meth:`reconstruct_batch`'s
         row semantics. One plan per erasure pattern, cached by the
-        ``DeviceCodec`` like every other matrix."""
-        sel, R, order = self._pattern(present, words_present.device)
-        if R is None:
-            return words_present.index_select(1, order)
-        sub = words_present.index_select(1, sel)
-        filled = self.device_codec().matmul_words_batch(R, sub)
-        return torch.cat([words_present, filled], dim=1).index_select(
-            1, order)
+        ``DeviceCodec`` like every other matrix. Spans and device time as
+        :meth:`encode_batch_words`."""
+        with entry_scope("batch.reconstruct_words",
+                         "reconstruct_batch_words", words_present.device):
+            with device_span("batch.pattern"):
+                sel, R, order = self._pattern(present, words_present.device)
+            if R is None:
+                with device_span("batch.cat"):
+                    return words_present.index_select(1, order)
+            with device_span("batch.select"):
+                sub = words_present.index_select(1, sel)
+            filled = self.device_codec().matmul_words_batch(R, sub)
+            with device_span("batch.cat"):
+                return torch.cat([words_present, filled],
+                                 dim=1).index_select(1, order)
 
     def _pattern(self, present: list[int], device=None) -> tuple:
         """(sel, R, order) for an erasure pattern, cached per device: the
@@ -245,7 +260,9 @@ class BatchCodec:
         present rows followed by the rebuilt ones. ``sel`` and ``order``
         are tuples, or with ``device`` index tensors on it, uploaded once:
         a copy from pageable host memory would wait for the device's
-        stream."""
+        stream. A miss counts in ``noise_ec_batch_pattern_misses_total``
+        under the entry that asked: ``reconstruct_batch_words`` with a
+        ``device``, else ``reconstruct_batch``."""
         key = (tuple(present), None if device is None else str(device))
         hit = self._patterns.get(key)
         if hit is not None:
@@ -268,6 +285,10 @@ class BatchCodec:
         if device is not None:
             sel, order = (torch.tensor(x, device=device) for x in (sel, order))
         hit = (sel, R, order)
+        default_registry().counter(
+            "noise_ec_batch_pattern_misses_total").labels(
+            entry="reconstruct_batch" if device is None
+            else "reconstruct_batch_words").add(1)
         if len(self._patterns) >= _PATTERNS:
             self._patterns.clear()
         self._patterns[key] = hit

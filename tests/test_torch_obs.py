@@ -55,10 +55,13 @@ def _value(family, **labels) -> float:
 def test_metrics_table_is_the_references():
     """Every name, type, help string and label tuple, in order."""
     """The reference's table, whole and in order, then the families only
-    the port records (the breaker's refusals, the kernels' launches)."""
+    the port records (the breaker's refusals, the kernels' launches, the
+    words entries' pattern misses and device seconds)."""
     port_only = port_registry.PORT_METRICS
     assert list(port_only) == ["noise_ec_codec_refused_total",
-                               "noise_ec_kernel_launches"]
+                               "noise_ec_kernel_launches",
+                               "noise_ec_batch_pattern_misses_total",
+                               "noise_ec_batch_device_seconds"]
     assert not set(port_only) & set(ref_registry.METRICS)
     assert list(port_registry.METRICS) == (list(ref_registry.METRICS)
                                            + list(port_only))
