@@ -38,7 +38,11 @@ before printing any result. Phases (one JSON line each):
    parity and (20, 50) recovery matrix, RS(30,10), RS(40,12), GF(2^16)
    RS(30,10) and RS(10,4) (each also against the NumPy field arithmetic
    on a 64 KiB slice, RS(10,4) also against K1), on a batch of three and
-   on ragged words through the codec;
+   on ragged words through the codec; and through its row maps at the
+   benchmark's rebuild geometry (6+3 and 10+4 at m = 8, 6+3 at m = 16;
+   survivors out of order, the product stored into a sentinel-filled
+   codeword), against the plain version under the same maps and the
+   gathered call, with ``reconstruct_batch_words`` on the in-place path;
    dense_kernels — the sublane pack and unpack K9 at RS(10,4)'s 1 MiB
    shards and at TW = 3,072 (TL = 384), and at TL = 129, 130, 384 and
    512, 4 bytes off a 16-byte boundary and through both stride loops
@@ -1083,6 +1087,117 @@ def phase_split_kernels(rng, device, results: dict, codec, codec16) -> dict:
     results["fused_split"]["max_abs_err"] = max(err, e3)
     report["batch_ragged"] = {"batch": 3, "tw": [8192, TW - 5],
                               "equal": True}
+    report["row_maps"] = split_row_maps(rng, device, codec, codec16)
+    return report
+
+
+# The rebuild cells' patterns for K5's row maps: (field, k, r, lost, the
+# survivors' order), the survivors out of codeword order so the input map
+# skips rows and runs backwards; GF(2^16) at m = 16 over symbol rows.
+ROW_MAP_CASES = (("gf256", 6, 3, (4,), (8, 0, 5, 2, 7, 1, 3, 6)),
+                 ("gf256", 6, 3, (0, 7), (8, 6, 5, 4, 3, 2, 1)),
+                 ("gf256", 10, 4, (3,), (13, 0, 12, 1, 11, 2, 10, 4, 9, 5,
+                                         8, 6, 7)),
+                 ("gf256", 10, 4, (2, 12), (13, 11, 10, 9, 8, 7, 6, 5, 4,
+                                            3, 1, 0)),
+                 ("gf65536", 6, 3, (1, 7), (8, 6, 5, 4, 3, 2, 0)))
+# Stripes a rebuild: the benchmark's block group of 128 x 1 MiB cells.
+ROW_MAP_BATCH = 128
+
+
+def mapped_split(tiles, threads, pat, m: int, words, out, ksplit,
+                 what: str) -> None:
+    """One K5 launch through the row maps of the rebuild pattern ``pat``
+    (``BatchCodec._pattern``), into ``out``; checks it is one launch."""
+    from noise_ec_tpu_torch.ops import launch_counts, reset_launch_counts
+    from noise_ec_tpu_torch.ops.fused import fused_split_encode_words
+
+    counter = "fused_split" if m == 8 else "fused_split16"
+    reset_launch_counts()
+    got = fused_split_encode_words(tiles, words, len(pat.lost), threads,
+                                   ksplit=ksplit, m=m, in_rows=pat.sel,
+                                   out=out, out_rows=pat.lost)
+    torch.cuda.synchronize()
+    launched = {x: v for x, v in launch_counts().items() if v}
+    check(got is out and launched == {counter: 1},
+          f"{what}: one {counter} launch a mapped call, got {launched}")
+
+
+def split_row_maps(rng, device, codec, codec16) -> dict:
+    """K5 through its row maps (``fused_split_encode_words(..., in_rows=,
+    out=, out_rows=)``) at the rebuild cells' geometry on 1 MiB cells: on
+    each pattern of :data:`ROW_MAP_CASES`, the survivors a (B, P, TW)
+    batch (batch stride P TW), the product stored into a sentinel-filled
+    (B, n, TW) codeword at the lost rows, against the plain version under
+    the same maps at B = 4 (K split 1 and the planner's) and B = 1 (the
+    streaming decoder's; the planner's split), the whole codeword compared
+    so no other row may change; at B = 128 against the contiguous call on
+    the gathered rows; one launch a call. Then ``BatchCodec.
+    reconstruct_batch_words`` on the same pattern at B = 16 against the
+    encoded codeword, counted on the in-place path. Inputs are made on
+    the card."""
+    from noise_ec_tpu_torch.obs.registry import default_registry
+    from noise_ec_tpu_torch.ops.fused import (
+        fused_split_encode_words,
+        fused_split_encode_words_plain,
+    )
+    from noise_ec_tpu_torch.parallel import BatchCodec
+
+    sentinel = 0x5EC71E55
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(rng.integers(1 << 62)))
+    in_place = default_registry().counter(
+        "noise_ec_batch_assembly_total").labels(
+        entry="reconstruct_batch_words", path="in_place")
+    report = {}
+    for field, k, r, lost, present in ROW_MAP_CASES:
+        cx = codec if field == "gf256" else codec16
+        m = 8 * cx.sym_bytes
+        name = f"{field} {k}+{r} lost {list(lost)} m={m}"
+        n, P, e = k + r, len(present), len(lost)
+        bc = BatchCodec(k, r, field=field, device=device)
+        pat = bc._pattern(list(present), device)
+        kind, threads, tiles, _ = cx.plan_for(pat.R)
+        check(kind == "split", f"{name}: the rebuild plans onto K5")
+        for B, ksplit in ((4, 1), (4, None), (1, None)):
+            words = device_words(gen, (B, P, TW), device)
+            out = torch.full((B, n, TW), sentinel, dtype=torch.int32,
+                             device=device)
+            mapped_split(tiles, threads, pat, m, words, out, ksplit, name)
+            want = torch.full_like(out, sentinel)
+            fused_split_encode_words_plain(tiles, words, e, 128, m,
+                                           in_rows=pat.sel, out=want,
+                                           out_rows=pat.lost)
+            torch.cuda.synchronize()
+            check(torch.equal(out, want),
+                  f"{name}: K5 through row maps vs plain, B = {B}, "
+                  f"K split {ksplit or 'of the planner'}")
+        words = device_words(gen, (ROW_MAP_BATCH, P, TW), device)
+        out = torch.full((ROW_MAP_BATCH, n, TW), sentinel,
+                         dtype=torch.int32, device=device)
+        mapped_split(tiles, threads, pat, m, words, out, None, name)
+        want = torch.full_like(out, sentinel)
+        want[:, pat.lost.long()] = fused_split_encode_words(
+            tiles, words.index_select(1, pat.sel), e, threads, m=m)
+        torch.cuda.synchronize()
+        check(torch.equal(out, want),
+              f"{name}: K5 through row maps vs the gathered call, "
+              f"B = {ROW_MAP_BATCH}")
+        del words, out, want
+        full = bc.encode_batch_words(device_words(gen, (16, k, TW), device))
+        before = in_place.value
+        got = bc.reconstruct_batch_words(
+            full[:, list(present)].contiguous(), list(present))
+        torch.cuda.synchronize()
+        check(torch.equal(got, full),
+              f"{name}: reconstruct_batch_words at B = 16")
+        check(in_place.value == before + 1,
+              f"{name}: the rebuild took the in-place path")
+        report[name] = {"sel": pat.sel.tolist(), "lost": pat.lost.tolist(),
+                        "phases": tiles.NT,
+                        "batches": [4, 4, 1, ROW_MAP_BATCH, 16],
+                        "equal": True}
+        del full, got
     return report
 
 # The GF(2^16) streams at 1 MiB shards: RS(30,10) on 240 MiB (8 chunks),

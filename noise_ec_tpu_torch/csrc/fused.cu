@@ -165,16 +165,32 @@ extern "C" int ec_fused(const void* in, void* out, int batch, int k, int r,
 // r is odd) back into words and stores them as K1 does. A grid too narrow
 // for the card splits the phases over `ksplit` blocks a column tile, which
 // XOR into the zeroed output atomically (ops/fused.py).
+//
+// Row maps (kMapped): input row j of batch b is read at in + b * in_bstride
+// + in_rows[j] * TW and output row q stored at out + b * out_bstride +
+// out_rows[q] * TW (a null table is the identity), so a rebuild reads its
+// basis rows where they lie and stores the lost rows into the codeword
+// (parallel/batch.py). The contiguous instantiation is the unmapped
+// kernel's own text: with the maps' arithmetic woven into the shared
+// statements it took 128 registers against 126 and ran 1% slower on the
+// write cells (PERF.md §6).
 namespace {
 
 using namespace noise_ec::tile;
 
-template <int N>
+struct RowMaps {
+  long long in_bstride;   // words from one batch's input rows to the next
+  long long out_bstride;  // the same for the output rows
+  const int* in_rows;     // k input rows, or null
+  const int* out_rows;    // r output rows, or null
+};
+
+template <int N, bool kMapped>
 __global__ void __launch_bounds__(kMaxThreads)
     split_kernel(const uint32_t* __restrict__ in, uint32_t* out,
                  const uint32_t* __restrict__ masks, int k, int r,
                  long long TW, int tl_shift, int ksl, Shape s, int NT,
-                 int ksplit, int mode) {
+                 int ksplit, int mode, RowMaps maps) {
   extern __shared__ __align__(16) uint32_t smem[];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -188,6 +204,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   k_range(0, NT, ksplit, blockIdx.z % ksplit, &t0, &t1);
   const long long TL = 1LL << tl_shift;
   const uint32_t* src = in + b * k * TW;
+  if constexpr (kMapped) src = in + b * maps.in_bstride;
   const uint32_t* msrc = masks + (long long)rg * NT * s.mask_words();
   const int chunks = s.ncol / 4;
 
@@ -200,9 +217,17 @@ __global__ void __launch_bounds__(kMaxThreads)
       const int row = t * ksl + ji / N;
       const long long g = g0 + x;
       if (row < k && g < groups) {
-        cp_async16(st + ji * s.ncol + x,
-                   src + row * TW + group_base<N>(g, tl_shift) +
-                       (ji % N) * TL);
+        if constexpr (kMapped) {
+          const long long jr =
+              maps.in_rows != nullptr ? __ldg(maps.in_rows + row) : row;
+          cp_async16(st + ji * s.ncol + x,
+                     src + jr * TW + group_base<N>(g, tl_shift) +
+                         (ji % N) * TL);
+        } else {
+          cp_async16(st + ji * s.ncol + x,
+                     src + row * TW + group_base<N>(g, tl_shift) +
+                         (ji % N) * TL);
+        }
       }
     }
     stage_masks(st + s.tile_words(),
@@ -230,6 +255,32 @@ __global__ void __launch_bounds__(kMaxThreads)
   uint32_t w[N];
   // The output symbol row of the warp's first N accumulators.
   const int row0 = (rg * s.rgr + wr * kRowBlock) / N;
+  if constexpr (kMapped) {
+    // Where each of the warp's output rows starts in its batch.
+    long long orow[kRowBlock / N];
+#pragma unroll
+    for (int q = 0; q < kRowBlock / N; ++q) {
+      const int row = min(row0 + q, r - 1);
+      orow[q] = (maps.out_rows != nullptr ? __ldg(maps.out_rows + row) : row) *
+                TW;
+    }
+#pragma unroll
+    for (int i = 0; i < kCols; ++i) {
+      const long long g = g0 + wc * 32 * kCols + lane + 32 * i;
+      if (g >= groups) continue;
+      uint32_t* dst = out + b * maps.out_bstride + group_base<N>(g, tl_shift);
+#pragma unroll
+      for (int q = 0; q < kRowBlock / N; ++q) {
+        if (row0 + q >= r) break;
+#pragma unroll
+        for (int v = 0; v < N; ++v) w[v] = acc[i][N * q + v];
+        transpose_group<N>(w);
+#pragma unroll
+        for (int v = 0; v < N; ++v) emit(dst + orow[q] + v * TL, w[v], mode);
+      }
+    }
+    return;
+  }
 #pragma unroll
   for (int i = 0; i < kCols; ++i) {
     const long long g = g0 + wc * 32 * kCols + lane + 32 * i;
@@ -253,42 +304,63 @@ __global__ void __launch_bounds__(kMaxThreads)
 
 namespace {
 
-template <int N>
-int launch_split(const void* in, void* out, const void* masks, int batch,
-                 int k, int r, long long TW, int tl_shift, int ksl, int NT,
-                 int NRG, int WR, int WC, int ksplit, void* stream) {
+template <int N, bool kMapped>
+int launch_split_as(const void* in, void* out, const void* masks, int batch,
+                    int k, int r, long long TW, int tl_shift, int ksl, int NT,
+                    int NRG, int WR, int WC, int ksplit, const RowMaps& maps,
+                    void* stream) {
   const Shape s = Shape::make(N * ksl, WR, WC, 1, 0);
   const size_t smem = s.smem_bytes(kStages);
-  cudaError_t err = noise_ec::allow_smem(split_kernel<N>, smem);
+  cudaError_t err = noise_ec::allow_smem(split_kernel<N, kMapped>, smem);
   if (err != cudaSuccess) return (int)err;
   const long long cols = (TW / N + s.ncol - 1) / s.ncol;
   if (cols > 0x7fffffffLL || (long long)batch * ksplit > 65535 || NRG > 65535)
     return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)cols, (unsigned)NRG, (unsigned)(batch * ksplit));
-  split_kernel<N><<<grid, 32 * WR * WC, smem, (cudaStream_t)stream>>>(
+  split_kernel<N, kMapped><<<grid, 32 * WR * WC, smem, (cudaStream_t)stream>>>(
       (const uint32_t*)in, (uint32_t*)out, (const uint32_t*)masks, k, r, TW,
-      tl_shift, ksl, s, NT, ksplit, ksplit > 1 ? kAtomicXor : kStore);
+      tl_shift, ksl, s, NT, ksplit, ksplit > 1 ? kAtomicXor : kStore, maps);
   return (int)cudaGetLastError();
+}
+
+template <int N>
+int launch_split(const void* in, void* out, const void* masks, int batch,
+                 int k, int r, long long TW, int tl_shift, int ksl, int NT,
+                 int NRG, int WR, int WC, int ksplit, const RowMaps& maps,
+                 void* stream) {
+  if (maps.in_rows != nullptr || maps.out_rows != nullptr ||
+      maps.in_bstride != k * TW || maps.out_bstride != r * TW)
+    return launch_split_as<N, true>(in, out, masks, batch, k, r, TW, tl_shift,
+                                    ksl, NT, NRG, WR, WC, ksplit, maps, stream);
+  return launch_split_as<N, false>(in, out, masks, batch, k, r, TW, tl_shift,
+                                   ksl, NT, NRG, WR, WC, ksplit, maps, stream);
 }
 
 }  // namespace
 
 // m (8 or 16) bit-planes a symbol, ksl input rows (m ksl planes) a phase.
-// With ksplit > 1 the caller has zeroed `out`. TL = 1 << tl_shift must be
-// at least 4: the ring copies four neighbouring groups' word i as one
-// aligned 16-byte chunk.
+// With ksplit > 1 the caller has zeroed the output rows. TL = 1 << tl_shift
+// must be at least 4: the ring copies four neighbouring groups' word i as
+// one aligned 16-byte chunk, so in_bstride must be a multiple of 4 words.
+// Row maps as split_kernel has them: null tables with strides k TW and r TW
+// are the contiguous (B, k, TW) -> (B, r, TW) product.
 extern "C" int ec_fused_split(const void* in, void* out, const void* masks,
                               int batch, int k, int r, long long TW,
                               int tl_shift, int m, int ksl, int NT, int NRG,
-                              int WR, int WC, int ksplit, void* stream) {
+                              int WR, int WC, int ksplit, long long in_bstride,
+                              const void* in_rows, long long out_bstride,
+                              const void* out_rows, void* stream) {
   if (batch == 0 || TW < m || r == 0) return cudaSuccess;
-  if (tl_shift < 2 || ksplit < 1 || 32 * WR * WC > kMaxThreads)
+  if (tl_shift < 2 || ksplit < 1 || 32 * WR * WC > kMaxThreads ||
+      in_bstride % 4)
     return (int)cudaErrorInvalidValue;
+  const RowMaps maps{in_bstride, out_bstride, (const int*)in_rows,
+                     (const int*)out_rows};
   if (m == 8)
     return launch_split<8>(in, out, masks, batch, k, r, TW, tl_shift, ksl,
-                           NT, NRG, WR, WC, ksplit, stream);
+                           NT, NRG, WR, WC, ksplit, maps, stream);
   if (m == 16)
     return launch_split<16>(in, out, masks, batch, k, r, TW, tl_shift, ksl,
-                            NT, NRG, WR, WC, ksplit, stream);
+                            NT, NRG, WR, WC, ksplit, maps, stream);
   return (int)cudaErrorInvalidValue;
 }

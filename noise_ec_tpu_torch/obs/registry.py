@@ -988,6 +988,15 @@ PORT_METRICS: dict[str, tuple[str, str, tuple[str, ...]]] = {
         "while a torch.profiler capture runs (GET /xprof)",
         ("entry",),
     ),
+    "noise_ec_batch_assembly_total": (
+        "counter",
+        "BatchCodec words rebuilds by how the codeword was assembled, "
+        "labeled by entry (reconstruct_batch_words) and path (in_place = "
+        "written once, the lost rows stored by K5 through its row maps; "
+        "gathered = the basis rows gathered, the product concatenated "
+        "and put in order)",
+        ("entry", "path"),
+    ),
 }
 METRICS.update(PORT_METRICS)
 

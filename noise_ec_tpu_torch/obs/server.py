@@ -341,8 +341,9 @@ class StatsServer:
         the clock of the kernels it launches (obs/trace.py): the node's,
         and the words entries' ``batch.encode_words`` /
         ``batch.reconstruct_words`` with ``batch.pattern``,
-        ``batch.select``, ``codec.plan``, ``codec.gate``, ``codec.launch``
-        and ``batch.cat`` inside. Each words entry on a card also records
+        ``codec.plan``, ``codec.gate``, ``codec.launch`` and either
+        ``batch.assemble`` (a rebuild written in place) or
+        ``batch.select`` and ``batch.cat`` inside. Each words entry on a card also records
         its device seconds, from CUDA events, into
         ``noise_ec_batch_device_seconds{entry}`` on ``/metrics``
         (obs/device.py ``entry_scope``). Outside a capture the entries

@@ -53,21 +53,27 @@ ring. The codec path's spans, nested as listed:
   of ``parallel/batch.py`` ``BatchCodec``, the root;
 - ``batch.pattern`` — the erasure-pattern lookup, with a miss's inversion
   and index uploads;
-- ``batch.select`` — the ``index_select`` of the basis rows;
+- ``batch.select`` — the ``index_select`` of the basis rows, where the
+  rebuild gathers them;
 - ``codec.plan`` — ``DeviceCodec.matmul_words_batch``'s route and
   plan-cache lookups before the gate, and, nested in ``codec.launch``,
   the planning of a matrix the plan cache missed;
 - ``codec.gate`` — the ``DeviceGate`` acquire;
-- ``codec.launch`` — the kernel launch (``_byte_rows`` / ``_words16``);
+- ``codec.launch`` — the kernel launch (``_byte_rows`` / ``_words16``, or
+  K5 through its row maps);
 - ``batch.cat`` — the ``torch.cat`` of the answer and its ``order``
-  ``index_select``.
+  ``index_select``, where the rebuild gathers;
+- ``batch.assemble`` — the slice copies of the present rows into the
+  codeword, where the rebuild writes it in place.
 
-Two families go with them (obs/registry.py ``PORT_METRICS``):
+Three families go with them (obs/registry.py ``PORT_METRICS``):
 ``noise_ec_batch_pattern_misses_total{entry}`` counts every pattern a
 ``BatchCodec`` planned, capture or not; ``noise_ec_batch_device_seconds
 {entry}`` holds each words entry's device seconds from CUDA timing events
 (obs/device.py :func:`~noise_ec_tpu_torch.obs.device.entry_scope`), and
-records only during a capture.
+records only during a capture; ``noise_ec_batch_assembly_total{entry,
+path}`` counts every words rebuild by how it assembled its codeword
+(``in_place`` or ``gathered``), capture or not.
 
 Request-scoped tracing (docs/observability.md "Request tracing"): a
 user-facing op opens :func:`request`, which mints a ``req-<16 hex>``

@@ -60,7 +60,7 @@ _SIGNATURES = {
     "ec_fused": [_p, _p, _i, _i, _i, _ll, _i, _i, _p, _p, _p, _p, _i, _i,
                  _i, _p, _i, _i, _p],
     "ec_fused_split": [_p, _p, _p, _i, _i, _i, _ll, _i, _i, _i, _i, _i, _i,
-                       _i, _i, _p],
+                       _i, _i, _ll, _p, _ll, _p, _p],
     "ec_panel": [_p, _p, _p, _i, _ll, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i,
                  _i, _p],
     "ec_mxu": [_p, _p, _p, _i, _i, _i, _ll, _i, _i, _i, _i, _p],

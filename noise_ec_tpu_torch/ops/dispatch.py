@@ -930,7 +930,7 @@ class DeviceCodec:
         m planes, so one GF(2^16) plan serves K5 at m = 8 over byte rows
         and at m = 16 over the interleaved words."""
         if tier in (None, "split"):
-            plan = fused_split_plan(bits_rows, C // m, len(bits_rows) // m, m)
+            plan = DeviceCodec._split_plan(bits_rows, C, m)
             if plan is not None:
                 threads, _, tiles = plan
                 return ("split", threads, tiles, 1)
@@ -943,6 +943,14 @@ class DeviceCodec:
             if tier == "fused":
                 raise ValueError("no fused-kernel plan fits this matrix")
         return ("pipeline",) + sparse_plan(bits_rows, C) + (1,)
+
+    @staticmethod
+    def _split_plan(bits_rows: tuple, C: int, m: int) -> Optional[tuple]:
+        """K5's plan (``fused_split_plan``) over C planes at m planes a
+        symbol, or None where its ring does not fit: the baked planner's
+        first choice (:meth:`_baked_plan`), which :meth:`writes_in_place`
+        foresees with it."""
+        return fused_split_plan(bits_rows, C // m, len(bits_rows) // m, m)
 
     # -- words entries (device-resident) ----------------------------------
 
@@ -992,7 +1000,11 @@ class DeviceCodec:
 
     def matmul_words_batch(self, M: np.ndarray, words: torch.Tensor, *,
                            tier: Optional[str] = None,
-                           donate: bool = False) -> torch.Tensor:
+                           donate: bool = False,
+                           rows: Optional[torch.Tensor] = None,
+                           out: Optional[torch.Tensor] = None,
+                           out_rows: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
         """(B, k, TW) int32 words -> (B, r, TW): one launch per kernel for
         the whole batch (the kernels take the batch as a grid axis).
 
@@ -1009,6 +1021,15 @@ class DeviceCodec:
         shard's stream, so the caller may drop it at once. Nothing is
         written into it.
 
+        Row maps, where :meth:`writes_in_place` holds: ``rows`` (k int32
+        indices on the codec's device) picks M's input rows of the (B, P,
+        TW) ``words``, and ``out``, a (B, N, TW) int32 tensor, takes the
+        product at its rows ``out_rows`` (r indices) and is returned
+        (without ``out``, a new (B, r, TW) product is). K5
+        reads and stores through the maps (ops/fused.py), on the codec's
+        card: nothing is gathered and no other row of ``out`` is written.
+        A plan that is not K5 raises ValueError.
+
         Returns once the work is queued on the card: the ``device_op``
         time of this entry is the submit time. During a ``torch.profiler``
         capture the call opens the spans ``codec.plan`` (the route and
@@ -1016,21 +1037,29 @@ class DeviceCodec:
         A product with no rows or no width returns its zeros and launches
         nothing, outside the gate (as :meth:`_stripes_entry`)."""
         M = np.asarray(M)
-        self._check_words(words, M.shape[1])
+        r, k = M.shape
+        self._check_words(words, k if rows is None else words.shape[1])
+        mapped = rows is not None or out is not None
+        if out is not None:
+            self._check_words(out, out.shape[1])
         if M.size == 0 or words.shape[2] == 0:
-            return words.new_zeros((words.shape[0], M.shape[0],
-                                    words.shape[2]))
+            if mapped:
+                raise ValueError("an empty product has no rows to store")
+            return words.new_zeros((words.shape[0], r, words.shape[2]))
         if donate:
             self._pool.donate(words)
-        nbytes = 4 * words.numel()
+        B, _, TW = words.shape
+        nbytes = 4 * B * k * TW
         with device_span("codec.plan"):
             route = self._admit("matmul_words", M, tier, nbytes)
         with device_gate(), device_op("matmul_words", route, nbytes,
                                       synced=False) as dt:
-            B, k, TW = words.shape
             with device_span("codec.launch"):
-                router = self._mesh(B, M) if self.sym_bytes == 1 else None
-                if router is not None:
+                router = (self._mesh(B, M)
+                          if self.sym_bytes == 1 and not mapped else None)
+                if mapped:
+                    out = self._mapped(M, words, rows, out, out_rows, tier)
+                elif router is not None:
                     out = router.words_product(self, M, words, tier=tier)
                     out = out.to_tensor(self.device)
                 elif self.sym_bytes == 1:
@@ -1039,8 +1068,52 @@ class DeviceCodec:
                     out = self._words16(M, words, tier)
             self._label_tile(dt, M, tier, sharded=router is not None)
             s = self.sym_bytes
-            self._analyze(dt, M, B * s * k, B * s * M.shape[0], TW // s)
+            self._analyze(dt, M, B * s * k, B * s * r, TW // s)
             return out
+
+    def _mapped(self, M: np.ndarray, words: torch.Tensor,
+                rows: Optional[torch.Tensor], out: torch.Tensor,
+                out_rows: Optional[torch.Tensor],
+                tier: Optional[str]) -> torch.Tensor:
+        """K5 through its row maps (:meth:`matmul_words_batch`'s ``rows``,
+        ``out`` and ``out_rows``)."""
+        kind, threads, tiles, _ = self.plan_for(M, tier)
+        if kind != "split":
+            raise ValueError(f"a {kind!r} plan cannot store through row "
+                             f"maps; gather the rows (writes_in_place)")
+        m = 8 * self.sym_bytes
+        return fused_split_encode_words(
+            tiles, words, M.shape[0], threads, lane_tl(words.shape[2], m),
+            m=m, in_rows=rows, out=out, out_rows=out_rows)
+
+    def writes_in_place(self, M: np.ndarray, words: torch.Tensor) -> bool:
+        """Whether :meth:`matmul_words_batch` can run ``M`` on the (B, P,
+        TW) int32 ``words`` through row maps: M's plan is K5 ("split": the
+        plan cache's, else :meth:`_split_plan`, found without planning),
+        the mesh router would not shard the batch, TW needs no padding to
+        the route's quantum, and the words' rows are TW-word runs whose
+        batches start 16 bytes apart. Where it cannot, the caller gathers
+        the rows."""
+        M = np.ascontiguousarray(np.asarray(M, dtype=self.gf.dtype))
+        if (words.dim() != 3 or words.dtype != torch.int32
+                or words.device != self.device):
+            return False
+        B, _, TW = words.shape
+        s = self.sym_bytes
+        quantum = WORD_QUANTUM if s == 1 else WORD_QUANTUM16
+        if (M.size == 0 or TW == 0 or pad_words(TW, quantum) != TW
+                or words.stride(2) != 1 or words.stride(1) != TW
+                or (B > 1 and words.stride(0) % 4)
+                or words.data_ptr() % 16):
+            return False
+        if s == 1 and self._mesh(B, M) is not None:
+            return False
+        hit = self._plan_cache.get((self._key(M), None))
+        if hit is not None:
+            return hit[0] == "split"
+        return (self.route_for(M) == "baked"
+                and self._split_plan(self.bits_rows_for(M),
+                                     8 * s * M.shape[1], 8 * s) is not None)
 
     def _mesh(self, B: int, M: np.ndarray, *, padded: bool = False):
         """The mesh router when a batch of B products of ``M`` shards over

@@ -236,24 +236,65 @@ def fused_encode_words(sched: XorSchedule, words: torch.Tensor, r: int,
 
 
 def fused_split_encode_words_plain(tiles: MaskTiles, words: torch.Tensor,
-                                   r: int, tl: int,
-                                   m: int = 8) -> torch.Tensor:
+                                   r: int, tl: int, m: int = 8, *,
+                                   in_rows: Optional[torch.Tensor] = None,
+                                   out: Optional[torch.Tensor] = None,
+                                   out_rows: Optional[torch.Tensor] = None
+                                   ) -> torch.Tensor:
     """Plain PyTorch K5 on (k, TW) or (B, k, TW) words: pack, the masked
     product (:func:`~noise_ec_tpu_torch.ops.gf2tile.masked_product_plain`),
-    unpack."""
+    unpack; with the row maps of :func:`fused_split_encode_words`, the
+    input rows ``in_rows`` of ``words`` and the output stored at rows
+    ``out_rows`` of ``out``."""
+    if in_rows is not None:
+        words = words.index_select(-2, in_rows)
     if words.dim() == 3:
-        return torch.stack(
+        prod = torch.stack(
             [fused_split_encode_words_plain(tiles, w, r, tl, m)
              for w in words]
         )
-    return _words(masked_product_plain(tiles, _planes(words, tl, m)), r, tl,
-                  m)
+    else:
+        prod = _words(masked_product_plain(tiles, _planes(words, tl, m)), r,
+                      tl, m)
+    if out is None:
+        return prod
+    rows = (torch.arange(r) if out_rows is None else out_rows).long()
+    out.index_copy_(-2, rows.to(out.device), prod)
+    return out
+
+
+def _check_rows(rows: Optional[torch.Tensor], n: int, what: str,
+                device: torch.device) -> None:
+    if rows is not None and (rows.dtype != torch.int32 or rows.dim() != 1
+                             or rows.numel() != n or rows.device != device
+                             or not rows.is_contiguous()):
+        raise ValueError(
+            f"{what} must be {n} contiguous int32 row indices on {device}, "
+            f"got {rows.dtype} {tuple(rows.shape)} on {rows.device}"
+        )
+
+
+def _check_mapped(x: torch.Tensor, what: str) -> None:
+    """A row-mapped operand: int32 (.., rows, TW) whose rows are TW-word
+    runs and whose batches start 16 bytes apart (the ring's copies)."""
+    if (x.dtype != torch.int32 or x.dim() not in (2, 3) or x.stride(-1) != 1
+            or x.stride(-2) != x.shape[-1]
+            or (x.dim() == 3 and x.shape[0] > 1 and x.stride(0) % 4)):
+        raise ValueError(
+            f"{what}: expected int32 (.., rows, TW) words with TW-word rows "
+            f"and 16-byte batch strides, got {x.dtype} {tuple(x.shape)} "
+            f"strides {x.stride()}"
+        )
 
 
 def fused_split_encode_words(tiles: MaskTiles, words: torch.Tensor, r: int,
                              threads: int, tl: Optional[int] = None,
                              ksplit: Optional[int] = None,
-                             m: int = 8) -> torch.Tensor:
+                             m: int = 8, *,
+                             in_rows: Optional[torch.Tensor] = None,
+                             out: Optional[torch.Tensor] = None,
+                             out_rows: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
     """K5: (k, TW) or (B, k, TW) int32 words -> (.., r, TW) int32 words,
     at m = 8 or 16 bit-planes a symbol (counted apart at 16, as
     ``fused_split16``).
@@ -266,36 +307,87 @@ def fused_split_encode_words(tiles: MaskTiles, words: torch.Tensor, r: int,
     :func:`~noise_ec_tpu_torch.ops.pack.lane_tl`, and the result does not
     depend on it). ``ksplit`` splits the phases over that
     many blocks a column tile (default: enough to fill the card's SMs,
-    :func:`~noise_ec_tpu_torch.ops.gf2tile.k_split`)."""
-    k = words.shape[-2]
+    :func:`~noise_ec_tpu_torch.ops.gf2tile.k_split`).
+
+    Row maps (symbol rows at m = 16): ``in_rows``, k int32 indices on the
+    words' device, makes input row j row ``in_rows[j]`` of ``words``, which
+    may then hold more rows than k; ``out``, (.., N, TW) words, takes the
+    product in place, at its rows ``out_rows`` (r int32 indices; default
+    0..r-1), and is returned; no other row of it is written, and with
+    ``ksplit`` > 1 only those rows are zeroed first. Either tensor's rows
+    must be TW-word runs and its batches 16 bytes apart; the batch strides
+    are the tensors' own."""
+    k = tiles.n_inputs // m
     if (tiles.n_inputs != m * k or tiles.n_rows != m * r or tiles.KT % m
-            or threads != tiles.threads):
+            or threads != tiles.threads
+            or (in_rows is None and words.shape[-2] != k)):
         raise ValueError(
             f"operand ({tiles.n_inputs} planes, {tiles.n_rows} rows, tile "
-            f"{tiles.KT}, {tiles.threads} threads) does not fit k={k}, r={r}, "
-            f"m={m} at {threads} threads on the split kernel"
+            f"{tiles.KT}, {tiles.threads} threads) does not fit "
+            f"{words.shape[-2]} input rows, r={r}, m={m} at {threads} "
+            f"threads on the split kernel"
         )
-    tl = _check_words(words, tl, m)
+    mapped = in_rows is not None or out is not None
+    if mapped:
+        _check_mapped(words, "words")
+        if out is not None:
+            _check_mapped(out, "out")
+            if (out.dim() != words.dim() or out.shape[-1] != words.shape[-1]
+                    or out.shape[:-2] != words.shape[:-2]
+                    or (out_rows is None and out.shape[-2] < r)):
+                raise ValueError(
+                    f"out {tuple(out.shape)} does not take {r} rows of "
+                    f"words {tuple(words.shape)}")
+        elif out_rows is not None:
+            raise ValueError("out_rows needs out")
+        _check_rows(in_rows, k, "in_rows", words.device)
+        _check_rows(out_rows, r, "out_rows", words.device)
+    TW = words.shape[-1]
+    tl = lane_tl(TW, m) if tl is None else tl
+    if not mapped:
+        tl = _check_words(words, tl, m)
+    elif m not in (8, 16) or TW % (8 * m * tl):
+        raise ValueError(f"TW {TW} is not a multiple of {8 * m * tl} at m={m}")
     if tl < 4 or tl & (tl - 1):
         raise ValueError(f"the split kernel needs TL a power of two >= 4, "
                          f"got {tl}")
     if words.device.type == "cpu":
-        return fused_split_encode_words_plain(tiles, words, r, tl, m)
+        return fused_split_encode_words_plain(
+            tiles, words, r, tl, m, in_rows=in_rows, out=out,
+            out_rows=out_rows)
     _check_device(words, tiles.masks)
     batched = words if words.dim() == 3 else words[None]
-    check_aligned(batched, tiles.masks)
-    B, k, TW = batched.shape
+    B = batched.shape[0]
     blocks = -(-(TW // m) // tiles.ncol) * tiles.NRG * B
     if ksplit is None:
         ksplit = k_split(blocks, tiles.NT, words.device)
     if not 1 <= ksplit <= tiles.NT:
         raise ValueError(f"K split {ksplit} not within [1, {tiles.NT}]")
-    alloc = torch.zeros if ksplit > 1 else torch.empty
-    out = alloc((B, r, TW), dtype=torch.int32, device=words.device)
+    if out is None:
+        alloc = torch.zeros if ksplit > 1 else torch.empty
+        dest = alloc((B, r, TW), dtype=torch.int32, device=words.device)
+    else:
+        _check_device(out, tiles.masks)
+        dest = out if out.dim() == 3 else out[None]
+        if ksplit > 1:
+            if out_rows is None:
+                dest[:, :r].zero_()
+            else:
+                dest.index_fill_(1, out_rows.long(), 0)
+    check_aligned(batched, tiles.masks)
+    # The contiguous strides, unless the maps' tensors have their own (a
+    # batch of one has none to follow).
+    strides = (k * TW, r * TW)
+    if mapped and B > 1:
+        strides = (batched.stride(0), dest.stride(0))
     _build.launch(
-        "ec_fused_split", words, _build.ptr(batched), _build.ptr(out),
+        "ec_fused_split", words, _build.ptr(batched), _build.ptr(dest),
         _build.ptr(tiles.masks), B, k, r, TW, tl.bit_length() - 1, m,
         tiles.KT // m, tiles.NT, tiles.NRG, tiles.WR, tiles.WC, ksplit,
+        strides[0], None if in_rows is None else _build.ptr(in_rows),
+        strides[1], None if out_rows is None else _build.ptr(out_rows),
     )
     LAUNCHES[_counter("fused_split", m)] += 1
-    return out if words.dim() == 3 else out[0]
+    if out is not None:
+        return out
+    return dest if words.dim() == 3 else dest[0]

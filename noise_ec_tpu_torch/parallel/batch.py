@@ -35,7 +35,7 @@ builder's devices are its mesh's.
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -73,6 +73,44 @@ _PATTERNS = 64
 # DeviceCodec.route_for, which sends RS(200,56) to the panel route.
 _MESH_XOR_BUDGET = 60_000
 _MESH_MAX_ROWS = 96
+
+
+class _Pattern(NamedTuple):
+    """An erasure pattern's plan (:meth:`BatchCodec._pattern`)."""
+
+    sel: tuple       # the basis rows' positions among the present rows
+    R: Optional[np.ndarray]  # rebuilds the lost rows; None: none is lost
+    order: tuple     # codeword row i is row order[i] of present + rebuilt
+    lost: tuple      # the lost rows, in codeword order
+    runs: tuple      # (src0, dst0, length): present rows -> codeword rows
+
+
+def _runs(present: list[int]) -> tuple:
+    """The present rows as runs (src0, dst0, length) of rows whose
+    positions and codeword rows both rise by one: at most e + 1 runs where
+    ``present`` is sorted."""
+    runs: list[list[int]] = []
+    for src, dst in enumerate(present):
+        if runs and dst == runs[-1][1] + runs[-1][2]:
+            runs[-1][2] += 1
+        else:
+            runs.append([src, dst, 1])
+    return tuple(map(tuple, runs))
+
+
+def _copy_runs(out: torch.Tensor, words: torch.Tensor, runs: tuple) -> None:
+    """Copy rows of (B, P, TW) ``words`` into (B, N, TW) ``out`` by runs
+    (:func:`_runs`), one slice copy each: as 8-byte elements where both
+    tensors allow it, since PyTorch's strided copy moves those at about
+    3.0 TB/s on an H100 and 4-byte ones at about 2.5 (PERF.md §6)."""
+    wide = [x.view(torch.int64) for x in (out, words)
+            if x.shape[-1] % 2 == 0 and x.stride(-1) == 1
+            and x.storage_offset() % 2 == 0
+            and all(st % 2 == 0 for st in x.stride()[:-1])]
+    if len(wide) == 2:
+        out, words = wide
+    for src, dst, length in runs:
+        out[:, dst:dst + length].copy_(words[:, src:src + length])
 
 
 def _all_gather(out: torch.Tensor, x: torch.Tensor) -> None:
@@ -211,11 +249,11 @@ class BatchCodec:
         codewords.
         """
         bp = np.asarray(batch_present, dtype=self.gf.dtype)
-        sel, R, order = self._pattern(present)
-        if R is None:
-            return bp[:, order]
-        filled = self.matmul_batch(R, bp[:, sel])
-        return np.concatenate([bp, filled], axis=1)[:, order]
+        pat = self._pattern(present)
+        if pat.R is None:
+            return bp[:, pat.order]
+        filled = self.matmul_batch(pat.R, bp[:, pat.sel])
+        return np.concatenate([bp, filled], axis=1)[:, pat.order]
 
     # -- words entries (device-resident) -----------------------------------
 
@@ -236,33 +274,60 @@ class BatchCodec:
         """Words-path batch rebuild: (B, len(present), TW) int32 words on
         the codec's device -> (B, n, TW), with :meth:`reconstruct_batch`'s
         row semantics. One plan per erasure pattern, cached by the
-        ``DeviceCodec`` like every other matrix. Spans and device time as
+        ``DeviceCodec`` like every other matrix.
+
+        The codeword is written once where the product runs on K5
+        (``DeviceCodec.writes_in_place``): each run of present rows is one
+        slice copy into its codeword rows (``batch.assemble``), and K5
+        reads the basis rows where they lie and stores the lost rows in
+        place. Elsewhere the basis rows are gathered (``batch.select``)
+        and the codeword is the product concatenated to the present rows
+        and put in order (``batch.cat``). Either counts in
+        ``noise_ec_batch_assembly_total{path}``. Spans and device time as
         :meth:`encode_batch_words`."""
         with entry_scope("batch.reconstruct_words",
                          "reconstruct_batch_words", words_present.device):
             with device_span("batch.pattern"):
-                sel, R, order = self._pattern(present, words_present.device)
-            if R is None:
+                pat = self._pattern(present, words_present.device)
+            dev = self.device_codec()
+            if pat.R is not None and not dev.writes_in_place(pat.R,
+                                                             words_present):
+                self._count_assembly("gathered")
+                with device_span("batch.select"):
+                    sub = words_present.index_select(1, pat.sel)
+                filled = dev.matmul_words_batch(pat.R, sub)
                 with device_span("batch.cat"):
-                    return words_present.index_select(1, order)
-            with device_span("batch.select"):
-                sub = words_present.index_select(1, sel)
-            filled = self.device_codec().matmul_words_batch(R, sub)
-            with device_span("batch.cat"):
-                return torch.cat([words_present, filled],
-                                 dim=1).index_select(1, order)
+                    return torch.cat([words_present, filled],
+                                     dim=1).index_select(1, pat.order)
+            self._count_assembly("in_place")
+            B, _, TW = words_present.shape
+            out = torch.empty((B, self.n, TW), dtype=torch.int32,
+                              device=words_present.device)
+            if pat.R is not None:
+                out = dev.matmul_words_batch(pat.R, words_present,
+                                             rows=pat.sel, out=out,
+                                             out_rows=pat.lost)
+            with device_span("batch.assemble"):
+                _copy_runs(out, words_present, pat.runs)
+            return out
 
-    def _pattern(self, present: list[int], device=None) -> tuple:
-        """(sel, R, order) for an erasure pattern, cached per device: the
-        first k of sorted ``present`` form the basis, at positions ``sel``
-        of the present rows; R (None when nothing is missing) rebuilds the
-        missing rows from them; codeword row i is row ``order[i]`` of the
-        present rows followed by the rebuilt ones. ``sel`` and ``order``
-        are tuples, or with ``device`` index tensors on it, uploaded once:
-        a copy from pageable host memory would wait for the device's
-        stream. A miss counts in ``noise_ec_batch_pattern_misses_total``
-        under the entry that asked: ``reconstruct_batch_words`` with a
-        ``device``, else ``reconstruct_batch``."""
+    @staticmethod
+    def _count_assembly(path: str) -> None:
+        default_registry().counter("noise_ec_batch_assembly_total").labels(
+            entry="reconstruct_batch_words", path=path).add(1)
+
+    def _pattern(self, present: list[int], device=None) -> _Pattern:
+        """The :class:`_Pattern` of an erasure pattern, cached per device:
+        the first k of sorted ``present`` form the basis, at positions
+        ``sel`` of the present rows; R (None when nothing is missing)
+        rebuilds the ``lost`` rows from them; codeword row i is row
+        ``order[i]`` of the present rows followed by the rebuilt ones.
+        ``sel``, ``order`` and ``lost`` are tuples, or with ``device``
+        int32 index tensors on it, views of one upload: a copy from
+        pageable host memory would wait for the device's stream. A miss
+        counts in ``noise_ec_batch_pattern_misses_total`` under the entry
+        that asked: ``reconstruct_batch_words`` with a ``device``, else
+        ``reconstruct_batch``."""
         key = (tuple(present), None if device is None else str(device))
         hit = self._patterns.get(key)
         if hit is not None:
@@ -282,9 +347,13 @@ class BatchCodec:
              if missing else None)
         sel = tuple(pos[i] for i in basis)
         order = tuple(pos[i] for i in range(self.n))
+        lost = tuple(missing)
         if device is not None:
-            sel, order = (torch.tensor(x, device=device) for x in (sel, order))
-        hit = (sel, R, order)
+            rows = torch.tensor(sel + lost + order, dtype=torch.int32,
+                                device=device)
+            k, e = len(sel), len(lost)
+            sel, lost, order = rows[:k], rows[k:k + e], rows[k + e:]
+        hit = _Pattern(sel, R, order, lost, _runs(list(present)))
         default_registry().counter(
             "noise_ec_batch_pattern_misses_total").labels(
             entry="reconstruct_batch" if device is None

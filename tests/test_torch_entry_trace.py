@@ -24,7 +24,16 @@ ENCODE = {
     "codec.launch": "batch.encode_words",
     "batch.cat": "batch.encode_words",
 }
+# A rebuild that writes its codeword in place (K5's row maps), and one that
+# gathers (here: a width the words path pads).
 RECONSTRUCT = {
+    "batch.pattern": "batch.reconstruct_words",
+    "codec.plan": "batch.reconstruct_words",
+    "codec.gate": "batch.reconstruct_words",
+    "codec.launch": "batch.reconstruct_words",
+    "batch.assemble": "batch.reconstruct_words",
+}
+RECONSTRUCT_GATHERED = {
     "batch.pattern": "batch.reconstruct_words",
     "batch.select": "batch.reconstruct_words",
     "codec.plan": "batch.reconstruct_words",
@@ -32,6 +41,8 @@ RECONSTRUCT = {
     "codec.launch": "batch.reconstruct_words",
     "batch.cat": "batch.reconstruct_words",
 }
+# The narrowest words the rebuild writes in place: one lane quantum.
+TW_IN_PLACE = 8192
 
 
 @pytest.fixture(autouse=True)
@@ -57,6 +68,12 @@ def _misses(entry="reconstruct_batch_words"):
         "noise_ec_batch_pattern_misses_total").labels(entry=entry).value
 
 
+def _assembled(path):
+    return default_registry().counter(
+        "noise_ec_batch_assembly_total").labels(
+        entry="reconstruct_batch_words", path=path).value
+
+
 def _device_hist(entry):
     return default_registry().histogram(
         "noise_ec_batch_device_seconds").labels(entry=entry)
@@ -77,7 +94,7 @@ def _parents(events, root):
 
 def test_words_entries_open_their_spans_in_a_capture():
     codec = _codec()
-    words = _words(2, 4)
+    words = _words(2, 4, TW=TW_IN_PLACE)
     full = codec.encode_batch_words(words)  # plans outside the capture
     present = [0, 2, 3, 4, 5]
     codec.reconstruct_batch_words(full[:, present], present)
@@ -85,6 +102,7 @@ def test_words_entries_open_their_spans_in_a_capture():
         out = codec.encode_batch_words(words)
         back = codec.reconstruct_batch_words(out[:, present], present)
     assert torch.equal(out, full) and torch.equal(back, full)
+    assert (_assembled("in_place"), _assembled("gathered")) == (2, 0)
     events = prof.events()
     assert _parents(events, "batch.encode_words") == ENCODE
     assert _parents(events, "batch.reconstruct_words") == RECONSTRUCT
@@ -101,6 +119,24 @@ def test_words_entries_open_their_spans_in_a_capture():
     assert sorted(map(sorted, by_id.values())) == sorted([
         sorted(set(ENCODE) | {"batch.encode_words"}),
         sorted(set(RECONSTRUCT) | {"batch.reconstruct_words"})])
+
+
+def test_a_gathered_rebuild_opens_select_and_cat():
+    """Where the words path pads the width, the rebuild gathers its basis
+    rows and concatenates: ``batch.select`` and ``batch.cat``, no
+    ``batch.assemble``."""
+    codec = _codec()
+    full = codec.encode_batch_words(_words(2, 4))
+    present = [0, 2, 3, 4, 5]
+    codec.reconstruct_batch_words(full[:, present], present)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        back = codec.reconstruct_batch_words(full[:, present], present)
+    assert torch.equal(back, full)
+    assert (_assembled("in_place"), _assembled("gathered")) == (0, 2)
+    assert _parents(prof.events(),
+                    "batch.reconstruct_words") == RECONSTRUCT_GATHERED
+    assert {s["name"] for s in default_tracer().dump()} == (
+        set(RECONSTRUCT_GATHERED) | {"batch.reconstruct_words"})
 
 
 def test_a_plan_miss_plans_under_the_launch():
@@ -230,7 +266,8 @@ def test_traced_cpu_repair_cell_reads_the_entry_metrics(monkeypatch):
     assert metrics["pattern_misses.repair"]["value"] >= 0
     assert 0 <= metrics["entry_idle.repair"]["value"] <= 100
     assert "entry_device_ms.repair" not in metrics  # no CUDA events here
+    assert metrics["inplace_share.repair"]["value"] == 100
     labels = {name for name, _ in res["breakdown"]["idle_gaps"]}
     assert labels & {"batch.reconstruct_words", "batch.pattern",
                      "batch.select", "codec.plan", "codec.gate",
-                     "codec.launch", "batch.cat"}
+                     "codec.launch", "batch.cat", "batch.assemble"}

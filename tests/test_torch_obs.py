@@ -56,12 +56,16 @@ def test_metrics_table_is_the_references():
     """Every name, type, help string and label tuple, in order."""
     """The reference's table, whole and in order, then the families only
     the port records (the breaker's refusals, the kernels' launches, the
-    words entries' pattern misses and device seconds)."""
+    words entries' pattern misses and device seconds, and how the words
+    rebuild assembled its codeword)."""
     port_only = port_registry.PORT_METRICS
     assert list(port_only) == ["noise_ec_codec_refused_total",
                                "noise_ec_kernel_launches",
                                "noise_ec_batch_pattern_misses_total",
-                               "noise_ec_batch_device_seconds"]
+                               "noise_ec_batch_device_seconds",
+                               "noise_ec_batch_assembly_total"]
+    assert port_only["noise_ec_batch_assembly_total"][0] == "counter"
+    assert port_only["noise_ec_batch_assembly_total"][2] == ("entry", "path")
     assert not set(port_only) & set(ref_registry.METRICS)
     assert list(port_registry.METRICS) == (list(ref_registry.METRICS)
                                            + list(port_only))
