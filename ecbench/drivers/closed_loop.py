@@ -139,7 +139,8 @@ class Driver:
         def done(i, req, t_a, t_b):
             useful = len(req.answer_rows) * job.stripes * job.cell_bytes
             least = roofline.rebuild_least_bytes(
-                job.k, len(req.lost), job.cell_bytes, job.stripes)
+                job.code.least_read(req.lost), len(req.lost),
+                job.cell_bytes, job.stripes)
             run.done.append(Done(op, t_a, t_b, useful, least))
             if i in job.slot:
                 job.got[i] = req
@@ -155,9 +156,9 @@ class Driver:
         self.scratch = None
 
     def answers(self):
-        """Each held answer beside the reference's rebuild of it from the
-        first k survivors; the reference's rebuild is also held against the
-        stored cells."""
+        """Each held answer beside the reference's rebuild of it from its
+        basis of survivors (``reference.Code.basis``); the reference's
+        rebuild is also held against the stored cells."""
         job = self.job
         for i, req in sorted(job.got.items()):
             blk = job.res[req.group * job.stripes:

@@ -71,11 +71,15 @@ def forbidden_modules() -> list:
 
 
 def program_codec(config: dict, device: str):
-    """The system under test: the port's batch codec for ``config``."""
+    """The system under test: the port's batch codec for ``config``, its
+    matrix kind ``program_matrix`` where the configuration names the port's
+    kind apart from the reference's generator (``lrc:2`` for ``lrc`` with
+    two groups), else ``generator``."""
     from noise_ec_tpu_torch.parallel.batch import BatchCodec
 
     return BatchCodec(int(config["data_units"]), int(config["parity_units"]),
-                      field=config["field"], matrix=config["generator"],
+                      field=config["field"],
+                      matrix=config.get("program_matrix", config["generator"]),
                       device=device)
 
 

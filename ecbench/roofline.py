@@ -4,11 +4,12 @@ least bytes an erasure-code product has to move.
 A GF(2^8) product reads every input row once and writes every output row
 once, whatever kernel computes it, so the least bytes of a call are (rows
 in + rows out) x cell bytes x stripes. An encode reads k data cells and
-writes r parity cells; a rebuild reads k surviving cells and writes the e
-lost ones. The count comes from the geometry and not from any plan, so it
-reads the same work whatever implements it. Operations are not counted:
-the least XOR count of a GF(2^8) product depends on the factoring an
-implementation picks.
+writes r parity cells; a rebuild reads the code's least read set of
+surviving cells (``reference.Code.least_read``: k for an MDS code, k/g a
+lost cell for an LRC's local heals) and writes the e lost ones. The count
+comes from the geometry and not from any plan, so it reads the same work
+whatever implements it. Operations are not counted: the least XOR count of
+a GF(2^8) product depends on the factoring an implementation picks.
 """
 
 from __future__ import annotations
@@ -25,11 +26,11 @@ def encode_least_bytes(k: int, r: int, cell_bytes: int, stripes: int) -> int:
     return (k + r) * cell_bytes * stripes
 
 
-def rebuild_least_bytes(k: int, lost: int, cell_bytes: int,
+def rebuild_least_bytes(read: int, lost: int, cell_bytes: int,
                         stripes: int) -> int:
     """Least bytes of rebuilding ``lost`` cells of each of ``stripes``
-    stripes: k surviving cells in, the lost ones out."""
-    return (k + lost) * cell_bytes * stripes
+    stripes: ``read`` surviving cells in, the lost ones out."""
+    return (read + lost) * cell_bytes * stripes
 
 
 def roofline_share(least_bytes: float, device_seconds: float,

@@ -53,7 +53,12 @@ def _broken(kind):
             out[out.shape[0] // 2:] = 0
             return out
         out = out.clone()
-        out.view(torch.uint8).view(-1)[17] ^= 0x40
+        # A byte of a row the product wrote: on the in-place rebuild, one of
+        # the lost rows of the codeword (``out_rows``), which the copy of the
+        # present rows leaves as it is.
+        rows = kw.get("out_rows")
+        row = out[0, int(rows[0])] if rows is not None else out[0, 0]
+        row.view(torch.uint8)[17] ^= 0x40
         return out
 
     return product

@@ -66,6 +66,38 @@ def test_rebuild_matrix_round_trip():
     assert np.array_equal(f.matmul(R, cells[basis]), cells[list(lost)])
 
 
+def _patterns(n, most):
+    return [lost for e in range(most + 1)
+            for lost in itertools.combinations(range(n), e)]
+
+
+@pytest.mark.parametrize("k,r,count", [(10, 4, 1471), (6, 3, 130)])
+def test_mds_basis_and_least_read_are_the_first_k(k, r, count):
+    """For the HDFS codes the basis of independent rows is the first k
+    present cells, the rebuild matrix is the one worked out from them and
+    a rebuild reads k cells, over every pattern of up to r losses: what the
+    HDFS cells check and count is what it was before codes that are not
+    MDS came in."""
+    code = reference.load(_config(k, r))
+    f = code.field
+    patterns = _patterns(k + r, r)
+    assert len(patterns) == count
+    for lost in patterns:
+        present = [i for i in range(k + r) if i not in lost]
+        first = sorted(present)[:k]
+        basis, R = code.rebuild_matrix(present, lost)
+        assert basis == first, lost
+        assert np.array_equal(R, f.matmul(code.G[list(lost)],
+                                          f.inverse(code.G[first]))), lost
+        assert code.least_read(lost) == k
+
+
+def test_too_few_cells_are_an_undecodable_pattern():
+    code = reference.load(_config(6, 3))
+    with pytest.raises(reference.UndecodablePattern, match="undecodable"):
+        code.rebuild_matrix([0, 1, 2, 3, 4], [5])
+
+
 @pytest.mark.parametrize("key,value", [("field", "gf65536"),
                                        ("generator", "vandermonde"),
                                        ("generator", "../harness")])
