@@ -38,6 +38,29 @@ def gf_inv(gf: GF, A: np.ndarray) -> np.ndarray:
     return aug[:, k:].astype(gf.dtype)
 
 
+def independent_rows(gf: GF, G: np.ndarray, rows, k: int) -> list[int]:
+    """The first k of ``rows``, in their order, whose rows of the (n, k)
+    generator ``G`` raise the rank over ``gf``: a decoding basis where the
+    code is not MDS (for an MDS code, the first k). Raises ValueError
+    where they have rank below k."""
+    basis: list[int] = []
+    pivots: list[tuple[int, np.ndarray]] = []  # (column, row with 1 there)
+    for i in rows:
+        v = np.asarray(G[i], dtype=np.int64)
+        for col, row in pivots:
+            if v[col]:
+                v = v ^ gf.mul(v[col], row).astype(np.int64)
+        nz = np.flatnonzero(v)
+        if nz.size == 0:
+            continue
+        pivots.append((int(nz[0]), gf.div(v, v[nz[0]]).astype(np.int64)))
+        basis.append(int(i))
+        if len(basis) == k:
+            return basis
+    raise ValueError(f"rows {list(rows)} have rank {len(basis)}, {k} "
+                     "needed: the erasure pattern is undecodable")
+
+
 def gf_solve(gf: GF, A: np.ndarray, B: np.ndarray) -> np.ndarray:
     """Solve A @ X = B over GF (A square)."""
     return gf.matmul(gf_inv(gf, A), B)

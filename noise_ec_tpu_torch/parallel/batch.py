@@ -17,6 +17,12 @@ GF(2^16) product over a batch of same-shape objects:
   take int32 word tensors ``(B, k, TW)`` already on the codec's device and
   run ``DeviceCodec.matmul_words_batch``: K1, K5 or the pipeline for a
   baked matrix, the panel or MXU kernels past it;
+- a rebuild's basis is the first k present rows, in index order, that
+  raise the generator's rank (for an MDS code the first k present). An
+  ``lrc:<g>`` codec (codec/lrc.py, docs/lrc.md) also has a local tier:
+  where every lost row is a data or local-parity row and the only loss of
+  its group, each lost row is the XOR of its group's other k/g rows, so
+  the basis is those groups' rows and R their all-ones rows;
 - the mesh builders (``make_sharded_*``) run one product over a
   :class:`~noise_ec_tpu_torch.parallel.mesh.Mesh`: ``batch_axis`` is data
   parallelism over objects and ``row_axis`` tensor parallelism over the
@@ -35,6 +41,7 @@ builder's devices are its mesh's.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -43,8 +50,14 @@ import torch.nn.functional as F
 
 from noise_ec_tpu_torch.gf.bitmatrix import expand_generator_bits
 from noise_ec_tpu_torch.gf.field import GF, GF256, GF65536
-from noise_ec_tpu_torch.matrix.generators import generator_matrix
-from noise_ec_tpu_torch.matrix.linalg import reconstruction_matrix
+from noise_ec_tpu_torch.matrix.generators import (
+    generator_matrix,
+    parse_lrc_kind,
+)
+from noise_ec_tpu_torch.matrix.linalg import (
+    independent_rows,
+    reconstruction_matrix,
+)
 from noise_ec_tpu_torch.obs.device import entry_scope
 from noise_ec_tpu_torch.obs.registry import default_registry
 from noise_ec_tpu_torch.obs.trace import device_span
@@ -83,6 +96,7 @@ class _Pattern(NamedTuple):
     order: tuple     # codeword row i is row order[i] of present + rebuilt
     lost: tuple      # the lost rows, in codeword order
     runs: tuple      # (src0, dst0, length): present rows -> codeword rows
+    tier: Optional[str]  # "local", "global"; None: none is lost
 
 
 def _runs(present: list[int]) -> tuple:
@@ -190,6 +204,8 @@ class BatchCodec:
         self.k = data_shards
         self.r = parity_shards
         self.n = data_shards + parity_shards
+        # The local groups of an "lrc:<g>" kind (the local tier), else None.
+        self.groups = parse_lrc_kind(matrix, self.k, self.n)
         self.G = generator_matrix(self.gf, self.k, self.n, matrix)
         if not np.array_equal(self.G[: self.k],
                               np.eye(self.k, dtype=self.gf.dtype)):
@@ -244,9 +260,8 @@ class BatchCodec:
         pattern.
 
         ``batch_present``: (B, len(present), S) — rows of each codeword
-        that survived, in ``present`` index order (>= k of them; the first
-        k of sorted ``present`` form the basis). Returns (B, n, S) full
-        codewords.
+        that survived, in ``present`` index order (>= k of them; the basis
+        is :meth:`_pattern`'s). Returns (B, n, S) full codewords.
         """
         bp = np.asarray(batch_present, dtype=self.gf.dtype)
         pat = self._pattern(present)
@@ -283,51 +298,75 @@ class BatchCodec:
         place. Elsewhere the basis rows are gathered (``batch.select``)
         and the codeword is the product concatenated to the present rows
         and put in order (``batch.cat``). Either counts in
-        ``noise_ec_batch_assembly_total{path}``. Spans and device time as
-        :meth:`encode_batch_words`."""
+        ``noise_ec_batch_assembly_total{path}``. An ``lrc:<g>`` codec
+        counts its rebuilt and basis rows by tier (:meth:`_count_tier`),
+        and a local heal's product opens ``batch.heal_local``. Spans and
+        device time as :meth:`encode_batch_words`."""
         with entry_scope("batch.reconstruct_words",
                          "reconstruct_batch_words", words_present.device):
             with device_span("batch.pattern"):
                 pat = self._pattern(present, words_present.device)
+            B, _, TW = words_present.shape
+            self._count_tier(pat, B)
             dev = self.device_codec()
             if pat.R is not None and not dev.writes_in_place(pat.R,
                                                              words_present):
                 self._count_assembly("gathered")
                 with device_span("batch.select"):
                     sub = words_present.index_select(1, pat.sel)
-                filled = dev.matmul_words_batch(pat.R, sub)
+                filled = self._product(dev, pat, sub)
                 with device_span("batch.cat"):
                     return torch.cat([words_present, filled],
                                      dim=1).index_select(1, pat.order)
             self._count_assembly("in_place")
-            B, _, TW = words_present.shape
             out = torch.empty((B, self.n, TW), dtype=torch.int32,
                               device=words_present.device)
             if pat.R is not None:
-                out = dev.matmul_words_batch(pat.R, words_present,
-                                             rows=pat.sel, out=out,
-                                             out_rows=pat.lost)
+                out = self._product(dev, pat, words_present, rows=pat.sel,
+                                    out=out, out_rows=pat.lost)
             with device_span("batch.assemble"):
                 _copy_runs(out, words_present, pat.runs)
             return out
+
+    @staticmethod
+    def _product(dev, pat: _Pattern, words: torch.Tensor, **maps):
+        """The rebuild's product R x basis rows; a local tier's opens
+        ``batch.heal_local`` while a capture records."""
+        with (device_span("batch.heal_local") if pat.tier == "local"
+              else contextlib.nullcontext()):
+            return dev.matmul_words_batch(pat.R, words, **maps)
 
     @staticmethod
     def _count_assembly(path: str) -> None:
         default_registry().counter("noise_ec_batch_assembly_total").labels(
             entry="reconstruct_batch_words", path=path).add(1)
 
+    def _count_tier(self, pat: _Pattern, stripes: int) -> None:
+        """An ``lrc:<g>`` codec's rebuild of ``stripes`` stripes: their
+        lost rows in ``noise_ec_lrc_repairs_total{tier}`` and their basis
+        rows in ``noise_ec_lrc_repair_shards_read_total{tier}``."""
+        if self.groups is None or pat.tier is None:
+            return
+        reg = default_registry()
+        reg.counter("noise_ec_lrc_repairs_total").labels(
+            tier=pat.tier).add(stripes * len(pat.lost))
+        reg.counter("noise_ec_lrc_repair_shards_read_total").labels(
+            tier=pat.tier).add(stripes * len(pat.sel))
+
     def _pattern(self, present: list[int], device=None) -> _Pattern:
-        """The :class:`_Pattern` of an erasure pattern, cached per device:
-        the first k of sorted ``present`` form the basis, at positions
-        ``sel`` of the present rows; R (None when nothing is missing)
-        rebuilds the ``lost`` rows from them; codeword row i is row
-        ``order[i]`` of the present rows followed by the rebuilt ones.
-        ``sel``, ``order`` and ``lost`` are tuples, or with ``device``
-        int32 index tensors on it, views of one upload: a copy from
-        pageable host memory would wait for the device's stream. A miss
-        counts in ``noise_ec_batch_pattern_misses_total`` under the entry
-        that asked: ``reconstruct_batch_words`` with a ``device``, else
-        ``reconstruct_batch``."""
+        """The :class:`_Pattern` of an erasure pattern, cached per device.
+        Its basis is the local tier's where it applies (:meth:`_local`),
+        else the first k present rows, in index order, whose generator
+        rows raise the rank (ValueError where the present rows have rank
+        below k); it lies at positions ``sel`` of the present rows, and R
+        (None when nothing is missing) rebuilds the ``lost`` rows from it;
+        codeword row i is row ``order[i]`` of the present rows followed by
+        the rebuilt ones. ``sel``, ``order`` and ``lost`` are tuples, or
+        with ``device`` int32 index tensors on it, views of one upload: a
+        copy from pageable host memory would wait for the device's stream.
+        A miss counts in ``noise_ec_batch_pattern_misses_total`` under the
+        entry that asked: ``reconstruct_batch_words`` with a ``device``,
+        else ``reconstruct_batch``."""
         key = (tuple(present), None if device is None else str(device))
         hit = self._patterns.get(key)
         if hit is not None:
@@ -340,11 +379,18 @@ class BatchCodec:
             raise ValueError(f"present rows {present} are not distinct "
                              f"shard indices below {self.n}")
         pos = {p: i for i, p in enumerate(present)}
-        basis = sorted(present)[: self.k]
         missing = [i for i in range(self.n) if i not in pos]
+        local = self._local(missing)
+        if local is not None:
+            (basis, R), tier = local, "local"
+        else:
+            basis = independent_rows(self.gf, self.G, sorted(present),
+                                     self.k)
+            R, tier = None, None
+            if missing:
+                R = reconstruction_matrix(self.gf, self.G, basis, missing)
+                tier = "global"
         pos.update((i, len(present) + j) for j, i in enumerate(missing))
-        R = (reconstruction_matrix(self.gf, self.G, basis, missing)
-             if missing else None)
         sel = tuple(pos[i] for i in basis)
         order = tuple(pos[i] for i in range(self.n))
         lost = tuple(missing)
@@ -353,7 +399,7 @@ class BatchCodec:
                                 device=device)
             k, e = len(sel), len(lost)
             sel, lost, order = rows[:k], rows[k:k + e], rows[k + e:]
-        hit = _Pattern(sel, R, order, lost, _runs(list(present)))
+        hit = _Pattern(sel, R, order, lost, _runs(list(present)), tier)
         default_registry().counter(
             "noise_ec_batch_pattern_misses_total").labels(
             entry="reconstruct_batch" if device is None
@@ -362,6 +408,28 @@ class BatchCodec:
             self._patterns.clear()
         self._patterns[key] = hit
         return hit
+
+    def _local(self, missing: list[int]):
+        """The local tier of an ``lrc:<g>`` codec: where every missing row
+        is a data or local-parity row and the only loss of its group
+        (data rows j k/g .. (j + 1) k/g - 1 and local parity k + j), the
+        basis (each missing row's group's other k/g rows, missing row by
+        missing row) and R (each missing row's all-ones row over its own
+        group's, block-diagonal); else None."""
+        g = self.groups
+        if g is None or not missing or max(missing) >= self.k + g:
+            return None
+        size = self.k // g
+        groups = [i // size if i < self.k else i - self.k for i in missing]
+        if len(set(groups)) < len(groups):
+            return None
+        basis: list[int] = []
+        R = np.zeros((len(missing), size * len(missing)), self.gf.dtype)
+        for row, (i, j) in enumerate(zip(missing, groups)):
+            R[row, len(basis):len(basis) + size] = 1
+            basis += [c for c in range(j * size, (j + 1) * size)
+                      if c != i] + ([self.k + j] if i < self.k else [])
+        return basis, R
 
     # -- mesh builders ------------------------------------------------------
 
